@@ -1,0 +1,21 @@
+"""PyTorch/CUDA port of the Loop-of-stencil-reduce system.
+
+The JAX package :mod:`repro` is the reference; this package is its twin
+for an NVIDIA H100 and never imports it (nor JAX).  The slice ported so
+far is the paper's own loop on one device: :class:`~repro_torch.core.
+pattern.LoopOfStencilReduce` on a persistent halo frame, whose sweep is a
+hand-written CUDA kernel (``kernels/csrc/stencil2d.cu``), driven by the
+§4 apps in :mod:`repro_torch.kernels.ops`.
+
+Entry points run on the CUDA card unless the caller passes
+``device="cpu"``, which selects the plain PyTorch path.
+"""
+from .core import (Boundary, LoopOfStencilReduce, LoopResult, Sentinel,
+                   health_status, loop_of_stencil_reduce,
+                   loop_of_stencil_reduce_d, loop_of_stencil_reduce_s)
+from .device import resolve_backend, resolve_device
+
+__all__ = ["Boundary", "LoopOfStencilReduce", "LoopResult", "Sentinel",
+           "health_status", "loop_of_stencil_reduce",
+           "loop_of_stencil_reduce_d", "loop_of_stencil_reduce_s",
+           "resolve_backend", "resolve_device"]

@@ -1,0 +1,74 @@
+"""Device and backend resolution shared by every entry point of the port.
+
+Entry points take ``device=None``, which means the CUDA card.  The plain
+PyTorch path runs on the CPU only when the caller asks for it
+(``device="cpu"``); nothing moves to the CPU because no card was found.
+
+The backend axis of the port:
+
+``"torch"``
+    The plain shift-algebra path (twin of the reference's ``"jnp"``).
+``"cuda"``
+    The hand-written stencil+reduce kernel iterated on a persistent halo
+    frame (twin of ``"pallas"``).  Needs tensors on a CUDA device.
+
+``backend=None`` resolves to ``"cuda"`` on a CUDA device and to
+``"torch"`` on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+BACKENDS = ("torch", "cuda")
+
+# names of backends the later slices of the port bring, with the ROADMAP
+# item that tracks each
+RESERVED_BACKENDS = {
+    "cuda-multistep": "ROADMAP.md queue A5/B2 (temporal blocking, "
+                      "kernel _ms_kernel)",
+    "cuda-sharded": "ROADMAP.md queue A7 (sharded 1:n tier)",
+}
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` → the CUDA card; raise when there is none."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; the port runs on the card by "
+            "default — pass device='cpu' to run the plain PyTorch path "
+            "on the CPU")
+    return dev
+
+
+def resolve_backend(backend, device: torch.device) -> str:
+    """Resolve ``backend`` against ``device`` (see module docstring)."""
+    if backend is None:
+        return "cuda" if device.type == "cuda" else "torch"
+    if backend in RESERVED_BACKENDS:
+        raise NotImplementedError(
+            f"backend={backend!r} belongs to a later slice of the port: "
+            f"{RESERVED_BACKENDS[backend]}")
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"unknown backend {backend!r}; choose from {BACKENDS}")
+    if backend == "cuda" and device.type != "cuda":
+        raise ValueError(
+            f"backend='cuda' runs the hand-written kernel and needs a CUDA "
+            f"device; got device={str(device)!r} (use backend='torch' for "
+            "the plain path)")
+    return backend
+
+
+def to_device(x, device: torch.device):
+    """Move a tensor, numpy array or (nested) tuple/list/dict of them to
+    ``device``; other leaves pass through unchanged."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_device(v, device) for v in x)
+    if isinstance(x, dict):
+        return {k: to_device(v, device) for k, v in x.items()}
+    if hasattr(x, "__array__"):
+        return torch.as_tensor(x, device=device)
+    return x

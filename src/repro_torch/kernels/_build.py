@@ -1,0 +1,102 @@
+"""Build-at-first-use loader for the port's CUDA kernels.
+
+The sources under ``csrc/`` are compiled with ``nvcc`` straight into a
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds, not minutes) and bound with :mod:`ctypes`.  The library
+lands in ``build/torch_ext/<hash of sources and flags>/`` at the root of
+the checkout (listed in ``.gitignore``); a file lock keeps concurrent
+processes from racing on one build.  Nothing is built when a module is
+imported, and a failed build raises: there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
+SOURCES = ("stencil2d.cu",)
+HEADERS = ("elementals.cuh",)
+# --fmad=false: no multiply-add contraction, so the functors round exactly
+# like the plain PyTorch bodies; no --use_fast_math (IEEE div and sqrtf).
+NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
+              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+LIB_NAME = "libstencil2d.so"
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else the one on PATH,
+    else ``/usr/local/cuda/bin/nvcc``."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        cands.append(Path(on_path))
+    cands.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in cands:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError("nvcc not found; the CUDA kernels cannot be built")
+
+
+def build_dir() -> Path:
+    """``build/torch_ext/<hash>``: the hash covers every source and flag."""
+    h = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the library if it is not there yet; return its path.  The
+    compiler's output (``-Xptxas -v``: registers, spills) is kept in
+    ``build.log`` beside it."""
+    out_dir = build_dir()
+    lib = out_dir / LIB_NAME
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if lib.is_file():
+                return lib
+            tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+                   *[str(CSRC / s) for s in SOURCES]]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            (out_dir / "build.log").write_text(
+                " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+            os.replace(tmp, lib)
+            return lib
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """Build (once per checkout) and load the kernel library, with the
+    argument types of its C entry points declared."""
+    lib = ctypes.CDLL(str(build()))
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.stencil_sweep.argtypes = [
+        i, i, vp, i,                 # functor, radius, params, n_params
+        vp, vp, vp, vp,              # in, out, env0, env1
+        ll, i, i, i, i, i, i, i,     # ld, pad, gm, gn, bm, bn, m, n
+        i, i, i,                     # monoid, measure, do_reduce
+        vp, vp, vp, vp]              # partials, ticket, result, stream
+    lib.stencil_sweep.restype = i
+    lib.stencil_error_string.argtypes = [i]
+    lib.stencil_error_string.restype = ctypes.c_char_p
+    return lib
