@@ -5,7 +5,9 @@ framed array is the loop-carried representation: the grid is staged into
 it once (:func:`make_frame`), the kernel reads and writes it directly,
 only the O(m+n) ghost ring is re-asserted between sweeps
 (:func:`refresh_frame`), and the domain is sliced out once at the end
-(:func:`unframe`).
+(:func:`unframe`).  :func:`refresh_frame` and :func:`unframe` also take a
+lane stack of frames (leading lane axis), the carry of the lane farm
+(:class:`LaneFrameSpec` and the ``*lane*`` helpers below).
 
     ┌──────────────────────────────┐
     │ ghost ring (pad = k·T wide)  │   frame shape: (gm·bm + 2·pad,
@@ -101,8 +103,7 @@ def frame_env(e: torch.Tensor, spec: FrameSpec, boundary: Boundary | str,
         out = torch.zeros((mi, ni), dtype=e.dtype, device=e.device)
         out[:spec.m, :spec.n] = e
         return out
-    b = Boundary(boundary)
-    return make_frame(e, spec, b if b is Boundary.WRAP else Boundary.ZERO)
+    return make_frame(e, spec, _env_ghost(boundary))
 
 
 def refresh_frame(frame: torch.Tensor, spec: FrameSpec,
@@ -113,37 +114,128 @@ def refresh_frame(frame: torch.Tensor, spec: FrameSpec,
     Column strips are filled from domain columns first, then row strips
     run full width over the column-refreshed frame, so corners compose
     like ``jnp.pad``.  Cells beyond the ``pad``-wide ring (deep round-up)
-    are never read by a domain cell and are left as they are.
+    are never read by a domain cell and are left as they are.  A lane
+    stack is refreshed lane by lane in the same four writes.
     """
     boundary = Boundary(boundary)
     p, m, n = spec.pad, spec.m, spec.n
     r0, r1 = p, p + m                      # domain rows in frame coords
+    f = frame
     if boundary in (Boundary.ZERO, Boundary.NAN):
         fill = 0.0 if boundary is Boundary.ZERO else float("nan")
-        frame[r0:r1, 0:p] = fill
-        frame[r0:r1, p + n:p + n + p] = fill
-        frame[0:p, :] = fill
-        frame[r1:r1 + p, :] = fill
+        f[..., r0:r1, 0:p] = fill
+        f[..., r0:r1, p + n:p + n + p] = fill
+        f[..., 0:p, :] = fill
+        f[..., r1:r1 + p, :] = fill
         return frame
     if boundary is Boundary.REFLECT:
         # ghost col p-d mirrors domain col p+d (no edge repeat)
-        frame[r0:r1, 0:p] = frame[r0:r1, p + 1:2 * p + 1].flip(1)
-        frame[r0:r1, p + n:p + n + p] = \
-            frame[r0:r1, p + n - 1 - p:p + n - 1].flip(1)
-        frame[0:p, :] = frame[p + 1:2 * p + 1, :].flip(0)
-        frame[r1:r1 + p, :] = frame[r1 - 1 - p:r1 - 1, :].flip(0)
+        f[..., r0:r1, 0:p] = f[..., r0:r1, p + 1:2 * p + 1].flip(-1)
+        f[..., r0:r1, p + n:p + n + p] = \
+            f[..., r0:r1, p + n - 1 - p:p + n - 1].flip(-1)
+        f[..., 0:p, :] = f[..., p + 1:2 * p + 1, :].flip(-2)
+        f[..., r1:r1 + p, :] = f[..., r1 - 1 - p:r1 - 1, :].flip(-2)
         return frame
     if boundary is Boundary.WRAP:
         # source and target strips never overlap (pad < min(m, n))
-        frame[r0:r1, 0:p] = frame[r0:r1, n:p + n]
-        frame[r0:r1, p + n:p + n + p] = frame[r0:r1, p:2 * p]
-        frame[0:p, :] = frame[r1 - p:r1, :]
-        frame[r1:r1 + p, :] = frame[p:2 * p, :]
+        f[..., r0:r1, 0:p] = f[..., r0:r1, n:p + n]
+        f[..., r0:r1, p + n:p + n + p] = f[..., r0:r1, p:2 * p]
+        f[..., 0:p, :] = f[..., r1 - p:r1, :]
+        f[..., r1:r1 + p, :] = f[..., p:2 * p, :]
         return frame
     raise ValueError(boundary)
 
 
 def unframe(frame: torch.Tensor, spec: FrameSpec) -> torch.Tensor:
-    """The (m, n) domain of ``frame`` (a view)."""
+    """The (m, n) domain of ``frame`` (a view; per lane for a stack)."""
     p = spec.pad
-    return frame[p:p + spec.m, p:p + spec.n]
+    return frame[..., p:p + spec.m, p:p + spec.n]
+
+
+# ---------------------------------------------------------------------------
+# Lane frames — the stacked carry of the 1:1 farm (twin of the reference's
+# lane half of frames.py).  ``lanes`` independent frames of one
+# :class:`FrameSpec` live in one (lanes, H, W) tensor; the kernels sweep all
+# lanes in one launch.  Slots are allocated once and refilled in place with
+# the next items' interiors (O(m·n) write + O(m+n) ghost refresh per lane,
+# no re-framing); stale round-up cells of an earlier item are inert, as in
+# :func:`refresh_frame`.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LaneFrameSpec:
+    """Static geometry of a lane stack: ``lanes`` frames of ``frame``."""
+
+    lanes: int
+    frame: FrameSpec
+
+    @property
+    def shape(self) -> tuple[int, int, int]:
+        return (self.lanes, *self.frame.shape)
+
+
+def alloc_lane_frames(lspec: LaneFrameSpec, dtype,
+                      device=None) -> torch.Tensor:
+    """Allocate the lane slots (zeros) — once, at stream start."""
+    return torch.zeros(lspec.shape, dtype=dtype, device=device)
+
+
+def make_lane_frames(a: torch.Tensor, spec: FrameSpec,
+                     boundary: Boundary | str) -> torch.Tensor:
+    """Embed a (lanes, m, n) stack into lane frames (one-shot staging)."""
+    frames = alloc_lane_frames(LaneFrameSpec(a.shape[0], spec), a.dtype,
+                               a.device)
+    return refill_lane_frames(frames, a, spec, boundary)
+
+
+def refill_lane_frames(frames: torch.Tensor, interiors: torch.Tensor,
+                       spec: FrameSpec,
+                       boundary: Boundary | str) -> torch.Tensor:
+    """Refill the lane slots in place with the next items' (lanes, m, n)
+    interiors, then re-assert every lane's ghost ring."""
+    p = spec.pad
+    frames[:, p:p + spec.m, p:p + spec.n] = interiors
+    return refresh_frame(frames, spec, boundary)
+
+
+def unframe_lanes(frames: torch.Tensor, spec: FrameSpec) -> torch.Tensor:
+    """Every lane's (m, n) domain (a view)."""
+    return unframe(frames, spec)
+
+
+def _env_ghost(boundary: Boundary | str) -> Boundary:
+    """The ring of a halo env frame: wrapped under wrap, else zero (see
+    :func:`frame_env`)."""
+    b = Boundary(boundary)
+    return b if b is Boundary.WRAP else Boundary.ZERO
+
+
+def alloc_lane_env(lspec: LaneFrameSpec, dtype, halo: bool = False,
+                   device=None) -> torch.Tensor:
+    """Zero-allocate the per-lane env slots, in :func:`frame_env`'s layout:
+    block-rounded interior, or the full frame with ``halo``."""
+    shape = lspec.frame.shape if halo else lspec.frame.interior
+    return torch.zeros((lspec.lanes, *shape), dtype=dtype, device=device)
+
+
+def lane_env_frames(e: torch.Tensor, spec: FrameSpec,
+                    boundary: Boundary | str,
+                    halo: bool = False) -> torch.Tensor:
+    """Stage a (lanes, m, n) stack of per-lane env fields (one-shot)."""
+    slots = alloc_lane_env(LaneFrameSpec(e.shape[0], spec), e.dtype, halo,
+                           e.device)
+    return refill_lane_env(slots, e, spec, boundary, halo)
+
+
+def refill_lane_env(env_frames: torch.Tensor, e: torch.Tensor,
+                    spec: FrameSpec, boundary: Boundary | str,
+                    halo: bool = False) -> torch.Tensor:
+    """Refill the env slots in place for the next items — an interior
+    write, plus the ghost ring with ``halo``."""
+    if not halo:
+        env_frames[:, :spec.m, :spec.n] = e
+        return env_frames
+    p = spec.pad
+    env_frames[:, p:p + spec.m, p:p + spec.n] = e
+    return refresh_frame(env_frames, spec, _env_ghost(boundary))

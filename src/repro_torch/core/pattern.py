@@ -12,13 +12,16 @@ semantics (paper §3.1, all variants, composable):
 The reference lowers the loop into one ``lax.while_loop``.  Here it is a
 **host loop over device-resident tensors**: the grid, the reduce value,
 the condition flag and the health word stay on the device, and the only
-host read per check is the done flag.  On ``backend="cuda"`` the loop body
-is the hand-written kernel on a persistent halo frame
-(:class:`repro_torch.core.executor.StencilEngine`); on ``"torch"`` it is
-the shift algebra.
+host read per check is the done flag.  On the kernel backends
+(``"cuda"``, ``"cuda-multistep"``) the loop body is a hand-written kernel
+on a persistent halo frame (:class:`repro_torch.core.executor.
+StencilEngine`); on ``"torch"`` it is the shift algebra.
 
-``farm_run``, ``lane_segment`` and ``segmented_while`` (the lane farm) come
-with the farm slice of the port (ROADMAP.md queue A6).
+:meth:`LoopOfStencilReduce.farm_run` runs a farm of such loops (the
+paper's 1:1 streaming mode) as one done-masked host loop over a
+lane-stacked carry, one kernel launch per sweep for every lane.
+``lane_segment``, ``segmented_while`` and the streaming ``FarmEngine``
+come with a later slice (ROADMAP.md queue A6).
 """
 from __future__ import annotations
 
@@ -27,8 +30,9 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from ..device import resolve_backend, resolve_device, to_device
-from .executor import check_unroll_feasible
+from ..device import KERNEL_BACKENDS, resolve_backend, resolve_device, \
+    to_device
+from .executor import auto_unroll, check_unroll_feasible
 from .frames import DEFAULT_BLOCK
 from .reduce import (HEALTH_STALL_MASK, health_update, resolve_monoid,
                      tree_reduce)
@@ -56,8 +60,9 @@ class LoopOfStencilReduce:
 
     f:        elemental function; by ``mode``: taps — f(get, *env);
               windows — f(w); indexed — f(w, idx); step — f(a) -> a.
-              On ``backend="cuda"`` an :class:`~repro_torch.kernels.ref.
-              Elemental` (the factories of :mod:`repro_torch.kernels.ref`).
+              On the kernel backends an :class:`~repro_torch.kernels.
+              ref.Elemental` (the factories of
+              :mod:`repro_torch.kernels.ref`).
     k:        stencil radius (halo depth).  Ignored in step mode.
     combine:  ⊕ — a monoid name ('sum','max','min','any','all','prod') or a
               binary associative callable (then ``identity`` is required;
@@ -73,9 +78,13 @@ class LoopOfStencilReduce:
     max_iters: hard iteration cap.
     unroll:   check the condition every ``unroll`` stencil applications
               (may overshoot convergence by < unroll iterations);
-              ``"auto"`` resolves to 1 on the single-step backends.
+              ``"auto"`` resolves to 1 on the single-step backends and by
+              :func:`~repro_torch.core.executor.auto_unroll` (with this
+              loop's ``block``) on ``"cuda-multistep"``, where ``unroll``
+              is the number of sweeps fused into one launch.
     backend:  ``None`` (``"cuda"`` on a CUDA device, ``"torch"`` on the
-              CPU), ``"torch"`` or ``"cuda"`` (taps mode, 2-D arrays).
+              CPU), ``"torch"``, ``"cuda"`` or ``"cuda-multistep"`` (the
+              kernel backends: taps mode, 2-D arrays).
     block:    the kernel's CTA tile (rows, cols).
     sentinel: a :class:`~repro_torch.core.reduce.Sentinel` health policy,
               or None (only the CONVERGED bit is tracked).
@@ -167,11 +176,11 @@ class LoopOfStencilReduce:
         resolved = self._resolve_unroll(getattr(a0, "shape", None))
         if resolved is not self:
             return resolved.run(a0, state0, env=env)
-        if self.backend == "cuda":
+        if self.backend in KERNEL_BACKENDS:
             if self.mode != "taps" or getattr(a0, "ndim", None) != 2:
                 raise ValueError(
-                    "backend 'cuda' requires mode='taps' and a 2-D array; "
-                    f"got mode={self.mode!r}, "
+                    f"backend {self.backend!r} requires mode='taps' and a "
+                    f"2-D array; got mode={self.mode!r}, "
                     f"ndim={getattr(a0, 'ndim', None)}")
             return self._run_persistent(a0, state0, env)
 
@@ -188,28 +197,43 @@ class LoopOfStencilReduce:
 
     # -- unroll resolution -----------------------------------------------
     def _resolve_unroll(self, shape) -> "LoopOfStencilReduce":
-        """Resolve ``unroll="auto"`` (1 on the single-step backends of this
-        slice) and fail loudly on an infeasible halo.  Returns ``self``
-        when nothing changes, else a resolved copy."""
+        """Resolve ``unroll="auto"`` against the grid shape and fail loudly
+        on an infeasible halo.  Returns ``self`` when nothing changes, else
+        a resolved copy."""
+        if shape is None or len(shape) < 2:
+            if self.unroll == "auto":
+                return dataclasses.replace(self, unroll=1)
+            return self
+        m, n = shape[-2], shape[-1]
         if self.unroll == "auto":
-            return dataclasses.replace(self, unroll=1)
-        if shape is not None and len(shape) >= 2 and self.backend == "cuda":
-            check_unroll_feasible(shape[-2], shape[-1], 1, k=self.k)
+            T = (auto_unroll(m, n, k=self.k, block=self.block)
+                 if self.backend == "cuda-multistep" else 1)
+            return dataclasses.replace(self, unroll=T)
+        if self.backend in KERNEL_BACKENDS:
+            sweeps = self.unroll if self.backend == "cuda-multistep" else 1
+            check_unroll_feasible(m, n, sweeps, k=self.k)
         return self
 
-    # -- the persistent-halo loop ("cuda" backend) -----------------------
+    def _engine(self):
+        """The persistent-frame engine of this loop: temporal blocking on
+        ``"cuda-multistep"``, single sweeps otherwise."""
+        from .executor import StencilEngine
+
+        return StencilEngine(
+            f=self.f, k=self.k, boundary=self.boundary,
+            combine=self.combine, identity=self.identity, delta=self.delta,
+            measure=self.measure, block=self.block, unroll=self.unroll,
+            backend=("cuda-multistep" if self.backend == "cuda-multistep"
+                     else "cuda"))
+
+    # -- the persistent-halo loop (kernel backends) ----------------------
     def _run_persistent(self, a0, state0, env) -> LoopResult:
         """Zero-copy realisation: the halo frame is the loop carry.
-        Framing happens once in ``prepare``; the body is kernel sweeps +
+        Framing happens once in ``prepare``; the body is kernel launches +
         the O(m+n) ghost refresh; the domain is sliced out once at the
         end.  (The -s variant's ``state_update`` sees a copy of the (m, n)
         domain each check — avoid it on hot paths.)"""
-        from .executor import StencilEngine
-
-        eng = StencilEngine(
-            f=self.f, k=self.k, boundary=self.boundary,
-            combine=self.combine, identity=self.identity, delta=self.delta,
-            measure=self.measure, block=self.block, unroll=self.unroll)
+        eng = self._engine()
         frame0, env_frames, spec = eng.prepare(a0, env)
         return self._drive(frame0, state0,
                            step=lambda fr: eng.sweeps(fr, env_frames, spec),
@@ -246,6 +270,129 @@ class LoopOfStencilReduce:
                           iters=torch.tensor(it, dtype=torch.int32,
                                              device=dev),
                           state=s, health=hw)
+
+    # -- the lane-stacked loop (1:1 farm) --------------------------------
+    def farm_run(self, a0, *, env=(), done0=None) -> LoopResult:
+        """Run a FARM of convergence loops as one done-masked loop over a
+        stacked (lanes, m, n) carry — the paper's 1:1 streaming mode.
+
+        ``a0`` carries a leading lane axis, and so does every ``env`` field
+        (each item brings its own).  On the kernel backends the lane frames
+        are staged once and each launch sweeps every lane (``blockIdx.z``
+        is the lane); each lane runs to its own trip count, and a lane that
+        is done keeps its value while the others sweep.  ``done0`` (a
+        (lanes,) bool) pre-masks lanes.  Results match ``run`` lane by lane;
+        ordering is positional.  ``cond`` is applied to the (lanes,) reduce
+        vector and must act elementwise (``lambda r: r < tol`` does); a
+        ``cond`` that answers with a scalar is applied lane by lane.
+        On ``"torch"`` the step mode takes a tensor carry.
+        """
+        if self.state_init is not None:
+            raise ValueError(
+                "the -s variant is not supported on farm_run "
+                "(per-lane states do not compose with a shared loop "
+                "state)")
+        if self.backend == "cuda-sharded":
+            raise ValueError(
+                "backend='cuda-sharded' lanes are driven by the streaming "
+                "FarmEngine (they need a mesh carrying both the lane and "
+                "the spatial axes; ROADMAP.md queue A6/A7)")
+        a0 = to_device(a0, self.device)
+        env = tuple(to_device(e, self.device) for e in env)
+        shape = getattr(a0, "shape", None)
+        resolved = self._resolve_unroll(shape and shape[1:])
+        if resolved is not self:
+            return resolved.farm_run(a0, env=env, done0=done0)
+        if self.backend in KERNEL_BACKENDS:
+            if self.mode != "taps" or getattr(a0, "ndim", None) != 3:
+                raise ValueError(
+                    f"backend {self.backend!r} farm_run requires "
+                    f"mode='taps' and a (lanes, m, n) stack; got mode="
+                    f"{self.mode!r}, ndim={getattr(a0, 'ndim', None)}")
+            eng = self._engine()
+            frames, env_frames, lspec = eng.prepare_lanes(a0, env)
+            return self._drive_lanes(
+                frames,
+                step=lambda fr, live: eng.sweeps_lanes(fr, env_frames,
+                                                       lspec, live),
+                finalize=lambda fr: eng.unframe_lanes(fr, lspec),
+                done0=done0)
+        return self._drive_lanes(a0, step=self._lane_step_torch(env),
+                                 finalize=lambda a: a, done0=done0)
+
+    def _lane_step_torch(self, env):
+        """The ``unroll``-deep step over a lane-stacked carry on the
+        ``"torch"`` backend, lane by lane (``env`` fields lane-stacked
+        alongside); lanes that are not live come back unchanged."""
+        def one(a1, e):
+            a_prev = a1
+            for _ in range(self.unroll):
+                a_prev, a1 = a1, self._apply(a1, e)
+            return a1, self._reduce(self._measure(a1, a_prev))
+
+        def step(a, live):
+            outs = [one(a[i], tuple(e[i] for e in env))
+                    for i in range(a.shape[0])]
+            a_new = torch.stack([o[0] for o in outs])
+            keep = live.reshape((-1,) + (1,) * (a.ndim - 1))
+            return (torch.where(keep, a_new, a),
+                    torch.stack([o[1] for o in outs]))
+        return step
+
+    def _lane_cond(self, r) -> torch.Tensor:
+        """The condition per lane, as a (lanes,) bool tensor: ``cond`` sees
+        one lane's reduce at a time, as under the reference's vmap, so a
+        condition that is not elementwise gives the same answer here."""
+        return torch.stack([self._cond_value(r[i], None)
+                            for i in range(r.shape[0])])
+
+    def _lane_body(self, step, carry):
+        """One done-masked step of the lane loop.  ``carry = (a, r, it,
+        done, hw)``; ``step(a, live)`` sweeps the live lanes and leaves the
+        others as they are.  A lane whose flag (or iteration cap) has fired
+        keeps its reduce, count and health word while the others run on;
+        the sentinel folds each live lane's reduce into its health word and
+        a POISONED or DIVERGED lane is masked done on the spot."""
+        a, r, it, done, hw = carry
+        live = ~done & (it < self.max_iters)
+        a, r_new = step(a, live)
+        done_new = self._lane_cond(r_new)
+        hw_new, quar = health_update(hw, r_new, r, live, done_new, it,
+                                     self.sentinel)
+        retire = done_new | quar
+        return (a,
+                torch.where(live, r_new, r.to(r_new.dtype)),
+                torch.where(live, it + self.unroll, it),
+                torch.where(live, done | retire, done),
+                torch.where(live, hw_new, hw))
+
+    def _lane_finished(self, carry) -> torch.Tensor:
+        """Per-lane mask of lanes that need no more sweeps: condition fired
+        (or quarantined) or iteration cap hit."""
+        it, done = carry[2], carry[3]
+        return done | (it >= self.max_iters)
+
+    def _drive_lanes(self, a0, *, step, finalize, done0=None
+                     ) -> LoopResult:
+        """Lane-stacked repeat/until: each lane owns a done flag and an
+        iteration count on the device, and the loop runs while any lane is
+        live — the one host read per check.  Lane for lane the same as
+        :meth:`_drive` (the same reduce, condition and health word)."""
+        dev = self.device
+        lanes = a0.shape[0]
+        carry = (a0,
+                 torch.full((lanes,), self._id, device=dev),
+                 torch.zeros((lanes,), dtype=torch.int32, device=dev),
+                 (torch.zeros((lanes,), dtype=torch.bool, device=dev)
+                  if done0 is None else
+                  torch.as_tensor(done0, device=dev).to(torch.bool)
+                  .reshape((lanes,))),
+                 torch.zeros((lanes,), dtype=torch.int32, device=dev))
+        while not bool(self._lane_finished(carry).all()):
+            carry = self._lane_body(step, carry)
+        a, r, it, _, hw = carry
+        return LoopResult(a=finalize(a), reduced=r, iters=it, state=None,
+                          health=hw)
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,10 @@ The backend axis of the port:
 ``"cuda"``
     The hand-written stencil+reduce kernel iterated on a persistent halo
     frame (twin of ``"pallas"``).  Needs tensors on a CUDA device.
+``"cuda-multistep"``
+    Temporal blocking: ``unroll=T`` sweeps fused into one launch of the
+    hand-written multistep kernel (twin of ``"pallas-multistep"``).  Needs
+    tensors on a CUDA device.
 
 ``backend=None`` resolves to ``"cuda"`` on a CUDA device and to
 ``"torch"`` on the CPU.
@@ -19,13 +23,13 @@ from __future__ import annotations
 
 import torch
 
-BACKENDS = ("torch", "cuda")
+BACKENDS = ("torch", "cuda", "cuda-multistep")
+# the backends that run a hand-written kernel (CUDA tensors only)
+KERNEL_BACKENDS = ("cuda", "cuda-multistep")
 
 # names of backends the later slices of the port bring, with the ROADMAP
 # item that tracks each
 RESERVED_BACKENDS = {
-    "cuda-multistep": "ROADMAP.md queue A5/B2 (temporal blocking, "
-                      "kernel _ms_kernel)",
     "cuda-sharded": "ROADMAP.md queue A7 (sharded 1:n tier)",
 }
 
@@ -52,11 +56,11 @@ def resolve_backend(backend, device: torch.device) -> str:
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}; choose from {BACKENDS}")
-    if backend == "cuda" and device.type != "cuda":
+    if backend in KERNEL_BACKENDS and device.type != "cuda":
         raise ValueError(
-            f"backend='cuda' runs the hand-written kernel and needs a CUDA "
-            f"device; got device={str(device)!r} (use backend='torch' for "
-            "the plain path)")
+            f"backend={backend!r} runs a hand-written kernel and needs a "
+            f"CUDA device; got device={str(device)!r} (use backend='torch' "
+            "for the plain path)")
     return backend
 
 

@@ -7,6 +7,8 @@ reference's arrays convert to) and rebuild it in the port's layout:
 * :func:`frame_from_numpy` — a reference halo frame, re-tiled into the
   port's :class:`~repro_torch.core.frames.FrameSpec` (the two packages pick
   different tiles, so the domain is copied and the ghost ring re-asserted);
+* :func:`lane_frames_from_numpy` — the same for a reference lane stack
+  (``farm_run``'s carry), into the port's lane layout;
 * :func:`loop_result_from_numpy` — a reference ``LoopResult``;
 * :func:`elemental_from_reference` — a reference elemental-function factory
   name and its parameters → the port's :class:`~repro_torch.kernels.ref.
@@ -19,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.frames import FrameSpec, make_frame
+from .core.frames import FrameSpec, make_frame, make_lane_frames
 from .core.pattern import LoopResult
 from .device import resolve_device
 from .kernels import ref as R
@@ -82,3 +84,22 @@ def elemental_from_reference(name: str, **params):
             f"no port counterpart for {name!r}; known: "
             f"{sorted(_FACTORIES) + ['abs_delta']}")
     return _FACTORIES[name](**params)
+
+
+def lane_frames_from_numpy(frames_np, *, m: int, n: int, pad: int, boundary,
+                           spec: FrameSpec, device=None) -> torch.Tensor:
+    """Re-tile a reference lane stack of frames ((lanes, H, W), each domain
+    at ``[pad:pad+m, pad:pad+n]``) into the port's lane layout
+    (:class:`~repro_torch.core.frames.LaneFrameSpec` of ``spec``) on
+    ``device``."""
+    if (spec.m, spec.n) != (m, n):
+        raise ValueError(
+            f"spec domain {(spec.m, spec.n)} != frame domain {(m, n)}")
+    frames_np = np.asarray(frames_np)
+    dom = frames_np[:, pad:pad + m, pad:pad + n]
+    if frames_np.ndim != 3 or dom.shape[1:] != (m, n):
+        raise ValueError(
+            f"lane stack of shape {frames_np.shape} holds no {m}x{n} "
+            f"domains at pad {pad}")
+    a = torch.tensor(dom, device=resolve_device(device))
+    return make_lane_frames(a, spec, boundary)

@@ -1,8 +1,10 @@
 """Build-at-first-use loader for the port's CUDA kernels.
 
-The sources under ``csrc/`` are compiled with ``nvcc`` straight into a
-shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds, not minutes) and bound with :mod:`ctypes`.  The library
+The sources under ``csrc/`` are compiled with ``nvcc`` into one shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds, not minutes) and bound with :mod:`ctypes`.  Each source compiles
+in its own ``nvcc`` process, all started together, and one more call links
+the objects.  The library
 lands in ``build/torch_ext/<hash of sources and flags>/`` at the root of
 the checkout (listed in ``.gitignore``); a file lock keeps concurrent
 processes from racing on one build.  Nothing is built when a module is
@@ -21,12 +23,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-SOURCES = ("stencil2d.cu",)
-HEADERS = ("elementals.cuh",)
+SOURCES = ("stencil2d.cu", "multistep.cu")
+HEADERS = ("elementals.cuh", "fold.cuh", "dispatch.cuh")
 # --fmad=false: no multiply-add contraction, so the functors round exactly
 # like the plain PyTorch bodies; no --use_fast_math (IEEE div and sqrtf).
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 LIB_NAME = "libstencil2d.so"
 
 
@@ -56,6 +58,24 @@ def build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
+def _run(cmds, log) -> None:
+    """Run the commands in parallel; append each one's output to ``log``
+    and raise if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        text = proc.communicate()[0]
+        with open(log, "a") as fh:
+            fh.write(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n"
+                          f"{text[-4000:]}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+
+
 def build() -> Path:
     """Compile the library if it is not there yet; return its path.  The
     compiler's output (``-Xptxas -v``: registers, spills) is kept in
@@ -68,17 +88,22 @@ def build() -> Path:
         try:
             if lib.is_file():
                 return lib
-            tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(CSRC / s) for s in SOURCES]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            (out_dir / "build.log").write_text(
-                " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-            if proc.returncode != 0:
+            nvcc, pid = nvcc_path(), os.getpid()
+            log = out_dir / "build.log"
+            log.write_text("")
+            objs = [out_dir / f"{Path(s).stem}.{pid}.o" for s in SOURCES]
+            tmp = out_dir / f"{LIB_NAME}.{pid}.tmp"
+            try:
+                _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+                      for s, o in zip(SOURCES, objs)], log)
+                _run([[nvcc, "-shared", "-gencode",
+                       "arch=compute_90a,code=sm_90a", "-o", str(tmp),
+                       *map(str, objs)]], log)
+                os.replace(tmp, lib)
+            finally:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-            os.replace(tmp, lib)
+                for o in objs:
+                    o.unlink(missing_ok=True)
             return lib
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
@@ -91,12 +116,22 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.stencil_sweep.argtypes = [
-        i, i, vp, i,                 # functor, radius, params, n_params
+        i, i, i, vp, i,              # functor, radius, dtype, params, n
         vp, vp, vp, vp,              # in, out, env0, env1
-        ll, i, i, i, i, i, i, i,     # ld, pad, gm, gn, bm, bn, m, n
+        ll, i,                       # ld, lanes
+        i, i, i, i, i, i, i,         # pad, gm, gn, bm, bn, m, n
         i, i, i,                     # monoid, measure, do_reduce
-        vp, vp, vp, vp]              # partials, ticket, result, stream
+        vp, vp, vp, vp, vp]          # live, partials, ticket, result, stream
     lib.stencil_sweep.restype = i
+    lib.multistep_sweep.argtypes = [
+        i, i, i, vp, i,              # functor, radius, dtype, params, n
+        vp, vp, vp, vp,              # in, out, env0, env1
+        ll, i,                       # ld, lanes
+        i, i, i, i, i, i, i, i,      # k, T, gm, gn, bm, bn, m, n
+        i, i, i, i, i,               # row_lo, row_hi, col_lo, col_hi, bnd
+        i, i,                        # monoid, measure
+        vp, vp, vp, vp, vp]          # live, partials, ticket, result, stream
+    lib.multistep_sweep.restype = i
     lib.stencil_error_string.argtypes = [i]
     lib.stencil_error_string.restype = ctypes.c_char_p
     return lib

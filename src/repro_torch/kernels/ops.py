@@ -6,7 +6,11 @@ Loop-of-stencil-reduce through the engine's backend axis
 
 * ``backend="torch"`` — the shift-algebra path;
 * ``backend="cuda"``  — the hand-written fused kernel iterated on a
-  persistent halo frame.
+  persistent halo frame;
+* ``backend="cuda-multistep"`` — temporal blocking: ``unroll`` sweeps fused
+  into one launch of the multistep kernel (``jacobi_solve``, ``restore``
+  and ``fused_sweep`` take ``unroll=T``; the loops check their condition
+  every T sweeps).
 
 ``use_kernel`` is the boolean shorthand (True → "cuda", False → "torch",
 None → by device: "cuda" on a CUDA device, "torch" on the CPU); an

@@ -34,8 +34,8 @@ def test_port_imports_no_jax_and_no_reference_package(path):
 
 def test_scan_covers_the_port():
     names = {p.name for p in PORT_FILES}
-    assert {"pattern.py", "stencil2d.py", "ops.py", "interop.py",
-            "chip_smoke.py", "helmholtz.py"} <= names
+    assert {"pattern.py", "stencil2d.py", "multistep.py", "ops.py",
+            "interop.py", "chip_smoke.py", "helmholtz.py"} <= names
 
 
 @pytest.fixture

@@ -180,7 +180,7 @@ def test_engine_ping_pongs_two_buffers():
                                atol=1e-5)
 
 
-def test_validation_matches_reference_contract():
+def test_validation_matches_reference_contract(monkeypatch):
     with pytest.raises(ValueError, match="termination condition"):
         TP.LoopOfStencilReduce(f=jac, device="cpu")
     with pytest.raises(ValueError, match="unknown mode"):
@@ -193,10 +193,15 @@ def test_validation_matches_reference_contract():
     with pytest.raises(ValueError, match="unknown backend"):
         TP.LoopOfStencilReduce(f=jac, cond=bool, backend="pallas",
                                device="cpu")
-    for name in ("cuda-multistep", "cuda-sharded"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TP.LoopOfStencilReduce(f=jac, cond=bool, backend=name,
-                                   device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TP.LoopOfStencilReduce(f=jac, cond=bool, backend="cuda-sharded",
+                               device="cpu")
+    # the temporal-blocking backend is ported: it constructs on a card
+    # (a card is pretended here; construction launches nothing)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    loop = TP.LoopOfStencilReduce(f=TR.jacobi_taps(), cond=bool,
+                                  backend="cuda-multistep", unroll=4)
+    assert (loop.backend, loop.unroll) == ("cuda-multistep", 4)
     with pytest.raises(TypeError, match="measure"):
         TP.LoopOfStencilReduce(f=lambda a: (a, a), cond=bool, mode="step",
                                max_iters=1, device="cpu").run(

@@ -180,7 +180,7 @@ def _enum(text, name):
 def test_descriptor_ids_match_the_cuda_sources():
     fun = _enum((CSRC / "elementals.cuh").read_text(), "FunctorId")
     assert {k.lower(): v for k, v in fun.items()} == TR.FUNCTOR_IDS
-    cu = (CSRC / "stencil2d.cu").read_text()
+    cu = (CSRC / "fold.cuh").read_text()
     assert {k[2:].lower(): v for k, v in _enum(cu, "MonoidId").items()} \
         == TK.MONOID_IDS
     assert {k[5:].lower(): v for k, v in _enum(cu, "MeasureId").items()} \
