@@ -2,11 +2,12 @@
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-(the single-step stencil+reduce sweep and the temporal-blocking multistep
-sweep), holds each against its plain PyTorch version, and drives the port's
-main paths — the persistent-frame Loop-of-stencil-reduce on "cuda" and
-"cuda-multistep", the lane farm ``farm_run`` and the paper's §4 apps — on
-one CUDA card at full size:
+(the single-step stencil+reduce sweep, the temporal-blocking multistep
+sweep and the sliding-window flash attention), holds each against its plain
+PyTorch version, and drives the port's main paths — the persistent-frame
+Loop-of-stencil-reduce on "cuda" and "cuda-multistep", the lane farm
+``farm_run``, the paper's §4 apps, and the gemma2-9b scoring forward and
+greedy serving — on one CUDA card at full size:
 
   0. the card (nvidia-smi), torch/CUDA versions, kernel build time;
   1. stencil_sweep vs plain on frames: every registered functor at a
@@ -26,15 +27,33 @@ one CUDA card at full size:
      and the converging solve against "torch" at the same unroll;
  10. farm_run of 8 full-HD restoration lanes with different noise levels,
      on "cuda" and "cuda-multistep" (T=3), against solo runs and "torch";
-  5. per-kernel timings at the main path's shape and the ``kernels`` line;
+  5. per-kernel timings at the main path's shape;
+ 11. swa_attention vs plain: the reference test's shapes in f32 (GQA,
+     softcap, every head_dim), gemma2-9b's local and global layers at
+     S=8192 in bf16 within one bf16 ulp, a planted fault (the band one kv
+     tile off) held to the same limit and required to fail it; per-launch
+     times with both bounds, the plain version's time and a library
+     call's (flex_attention), registers;
+ 12. gemma2-9b at full width and depth in bf16, B=1, S=8192: the scoring
+     forward on the kernel route (42 launches a forward) and on the einsum
+     route, lm_loss, max|dlogits| and top-1 agreement gated; then in f32
+     at depth 2 (TF32 off), the routes' logits and loss within tight
+     bounds; at both sizes the gates must fail a planted fault (every
+     local window one kv tile wider on the kernel route);
+ 13. greedy serving of gemma2-9b in bf16: B=2 prompts of 4576 tokens, 32
+     new tokens, ring caches on the local layers; two runs identical, and
+     the teacher-forced forward's argmax against the tokens (exact in f32
+     at depth 2); then the ``kernels`` line;
   6. torch.profiler breakdown of the kernel loops (three runs on "cuda",
      one on "cuda-multistep" at T=4): device time by kernel and the
      device's idle share;
   7. the single-step kernel's time for a range of CTA tile shapes.
 
 Every phase runs, at the sizes above, in the order listed.  Phases 2-4, 9
-and 10 are the main path: the kernel launch counts are zeroed just before
-phase 2 and read just after phase 10.  Every phase's failure propagates:
+and 10 are the stencil main path: the kernel launch counts are zeroed just
+before phase 2 and read just after phase 10.  Phases 12-13 are the LM main
+path: the counts are zeroed just before phase 12 and read just after phase
+13.  Every phase's failure propagates:
 the exit code is non-zero and the final ok line is not printed.  Without a
 CUDA card, or without the repository around it, the script exits non-zero
 before printing any result.
@@ -58,9 +77,34 @@ TOL_BF16 = 5e-2        # bf16 frames, kernel vs plain (atol and rtol; the
                        # reference's bf16 tolerance): the kernel computes in
                        # float and rounds once per sweep, the plain version
                        # rounds after every torch op
+TOL_SWA_F32 = 2e-5     # attention kernel vs plain in float32 (the reference
+                       # test's: online softmax over tiles vs dense softmax)
+# bf16 at gemma2's shapes (S=8192): the outputs average thousands of keys
+# and are ~0.02, so 3e-2 would pass a band off by a tile.  The kernel and
+# the plain version round nearly the same float32 value to bf16 once, so
+# they differ by at most one bf16 ulp (<= 2^-7 of the value) plus the
+# float32 gap (~1e-6): rtol 1e-2 with atol 1e-4.  A planted fault (the band
+# moved by one 128-key tile) must break this limit.
+TOL_SWA_BF16_RTOL = 1e-2
+TOL_SWA_BF16_ATOL = 1e-4
+FAULT_SHIFT = 128      # planted fault: window widened by one kv tile
+# bf16 gemma2-9b forward at full depth, kernel route vs einsum route (the
+# einsum route rounds its scores and probabilities to bf16 where the kernel
+# keeps float32).  The first full-depth runs read an lm_loss gap of 6.9e-6
+# (relative), max|dlogits| 0.146 and top-1 agreement 0.9968; the limits
+# leave room for that spread, no more.
+TOL_LOSS_BF16 = 1e-4
+TOL_LOGITS_BF16 = 0.5
+MIN_TOP1_BF16 = 0.99
+TOL_LOGITS_F32 = 1e-3  # f32 depth-2 forward, the two routes' logits (atol)
+TOL_LOSS_F32 = 1e-5    # ... and their lm_loss (relative)
+LM_ARCH = "gemma2-9b"  # phases 12-13: full width
+LM_SEQ = 8192          # phase 12: the model's context
+SERVE_PROMPT, SERVE_NEW = 4576, 32   # phase 13: max_seq 4608 > window 4096
 # published H100 device-memory rates (NVIDIA data sheets), by part
 MEM_RATE = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
 FP32_RATE = 67e12      # H100 SXM float32 outside the tensor cores
+BF16_RATE = 989e12     # H100 SXM bf16 tensor cores, dense
 
 
 def log(*a):
@@ -120,19 +164,30 @@ def max_err(x, y) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
-def within(x, y, tol) -> bool:
-    """|x - y| <= tol + tol * |y| everywhere, NaN == NaN."""
+def within(x, y, tol, atol=None) -> bool:
+    """|x - y| <= atol + tol * |y| everywhere (atol defaults to tol),
+    NaN == NaN."""
     import torch
     x, y = x.float(), y.float()
+    atol = tol if atol is None else atol
     both = torch.isnan(x) & torch.isnan(y)
-    ok = (x - y).abs() <= tol + tol * y.abs()
+    ok = (x - y).abs() <= atol + tol * y.abs()
     return bool((ok | both).all())
+
+
+def limit_use(x, y, rtol, atol) -> float:
+    """max |x - y| / (atol + rtol |y|): the share of the limit used (above
+    1 fails it)."""
+    x, y = x.float(), y.float()
+    return float(((x - y).abs() / (atol + rtol * y.abs())).max())
 
 
 def zero_counts():
     from repro_torch.kernels import stencil2d as S
-    for key in S.launch_counts:
-        S.launch_counts[key] = 0
+    from repro_torch.kernels import swa_attention as A
+    for counts in (S.launch_counts, A.launch_counts):
+        for key in counts:
+            counts[key] = 0
 
 
 def same_scalar(a, b, rel) -> bool:
@@ -165,8 +220,12 @@ def ptxas_entries(blog: str):
 
 def short_name(mangled: str) -> str:
     """``kernel<storage, functor>`` from a mangled instantiation name."""
-    kernel = "multistep" if "multistep_kernel" in mangled else "stencil_sweep"
     storage = "bf16" if "nv_bfloat16" in mangled else "f32"
+    if "swa_kernel" in mangled:
+        hd = mangled.split("swa_kernel", 1)[1].split("Li", 1)[1] \
+            .split("E", 1)[0]
+        return f"swa_kernel<{storage}, hd={hd}>"
+    kernel = "multistep" if "multistep_kernel" in mangled else "stencil_sweep"
     functor = next((w for w in ("HelmholtzJacobi", "AmfMask", "AmfRepl",
                                 "Median3", "Restore", "Jacobi", "Heat",
                                 "Sobel", "Gol", "Conv") if w in mangled), "?")
@@ -531,13 +590,34 @@ def phase5_multistep(gen, size, rate):
     return rows
 
 
+def profiled(fn):
+    """Run ``fn`` under torch.profiler: (wall seconds, device-busy seconds,
+    [(device µs, count, kernel name)] sorted by time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, secs = wall(fn)
+    rows = []
+    for ev in prof.key_averages():
+        # device-side events only: CPU-side op entries repeat their
+        # kernels' time
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            rows.append((us, ev.count, ev.key))
+    rows.sort(reverse=True)
+    return secs, sum(r[0] for r in rows) * 1e-6, rows
+
+
 def phase6(gen, size, runs=3):
     """Where a check's time goes in the kernel loops — device time by
     kernel name and the device's busy share, from torch.profiler over 48
     sweeps of the Helmholtz loop: ``runs`` times on "cuda", once on
     "cuda-multistep" at T=4."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     u0 = torch.zeros((size, size), device="cuda")
     fxy = torch.randn((size, size), generator=gen, device="cuda")
     kw = dict(alpha=0.5, dx=1.0 / 512, tol=0.0, cond=lambda r: False)
@@ -549,22 +629,8 @@ def phase6(gen, size, runs=3):
     sync()
     idle = {}
     for run, (backend, T) in enumerate(plan):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _, secs = wall(lambda: helmholtz_loop(
-                u0, fxy, max_iters=sweeps, backend=backend, unroll=T, **kw))
-        rows = []
-        for ev in prof.key_averages():
-            # device-side events only: CPU-side op entries repeat their
-            # kernels' time
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-            if us > 0:
-                rows.append((us, ev.count, ev.key))
-        rows.sort(reverse=True)
-        busy = sum(r[0] for r in rows) * 1e-6
+        secs, busy, rows = profiled(lambda: helmholtz_loop(
+            u0, fxy, max_iters=sweeps, backend=backend, unroll=T, **kw))
         idle.setdefault(backend, []).append(1 - busy / secs)
         log(f"[phase6] run {run}: helmholtz {size}x{size} {sweeps} sweeps "
             f"on {backend} (unroll {T}) under the profiler: wall "
@@ -935,6 +1001,441 @@ def phase10(gen):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the LM slice: sliding-window attention, gemma2-9b forward and serving
+# ---------------------------------------------------------------------------
+
+
+def band_pairs(S: int, window: int) -> int:
+    """(q, k) pairs inside the causal band of one head: what the kernel
+    must compute for this shape."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def swa_bounds(S, window, H, KH, hd, elem, B=1, rate=3.35e12):
+    """(bound_ms, bound_by, f32_core_ms): bytes of q, k, v read once and o
+    written once, against 4·hd flops per visible (q, k) pair and head (two
+    products, multiply and add) at the type's peak rate."""
+    nbytes = B * (2 * H + 2 * KH) * S * hd * elem
+    flops = 4 * hd * band_pairs(S, window) * H * B
+    peak = BF16_RATE if elem == 2 else FP32_RATE
+    t_bytes, t_ops = nbytes / rate, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            flops / FP32_RATE * 1e3)
+
+
+def library_attention(q, k, v, window, cap):
+    """One PyTorch call for the same function, as a yardstick the port
+    never uses: ``flex_attention`` (compiled) with the softcap as
+    ``score_mod`` and the band as a block mask; if that fails, SDPA with a
+    boolean band mask and no softcap.  Returns (fn, label, note)."""
+    import torch
+    import torch.nn.functional as F
+    BH, S, hd = q.shape
+    q4, k4, v4 = (t.reshape(1, t.shape[0], S, hd) for t in (q, k, v))
+
+    def band(b, h, q_idx, kv_idx):
+        ok = kv_idx <= q_idx
+        if window:
+            ok = ok & (kv_idx > q_idx - window)
+        return ok
+
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+
+        def capped(score, b, h, q_idx, kv_idx):
+            return cap * torch.tanh(score / cap)
+        bm = create_block_mask(band, B=None, H=None, Q_LEN=S, KV_LEN=S,
+                               device="cuda")
+        flex = torch.compile(flex_attention, dynamic=False)
+
+        def fn():
+            return flex(q4, k4, v4, score_mod=capped, block_mask=bm,
+                        enable_gqa=True)
+        out = fn().reshape(BH, S, hd)
+        sync()
+        return fn, "flex_attention", out
+    except Exception as e:                        # noqa: BLE001
+        note = f"flex_attention failed ({type(e).__name__}: {e})"[:300]
+        log(f"[phase11] {note}; timing SDPA with a boolean band mask on "
+            "the softcap-free function instead")
+    qp = torch.arange(S, device="cuda")[:, None]
+    kp = torch.arange(S, device="cuda")[None, :]
+    mask = band(None, None, qp, kp)
+    try:
+        def fn():
+            return F.scaled_dot_product_attention(q4, k4, v4,
+                                                  attn_mask=mask,
+                                                  enable_gqa=True)
+        fn()
+        sync()
+        return fn, "sdpa (bool band mask, no softcap)", None
+    except Exception as e:                        # noqa: BLE001
+        log(f"[phase11] SDPA failed too ({type(e).__name__}: {e})"[:300])
+        return None, "none", None
+
+
+def phase11(gen, rate):
+    """swa_attention kernel vs its plain version: the reference test's
+    shapes (plus GQA, softcap, every head_dim) in f32, and gemma2-9b's
+    local and global layers at S=8192 in bf16 (the plain version one kv
+    head group at a time); per-launch times at the gemma2 shapes with both
+    bounds, the plain version's time and a library call's."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import swa_attention as A
+
+    for name, r, spill in ptxas_entries(
+            (_build.build_dir() / "build.log").read_text()):
+        if "swa_kernel" in name:
+            log(f"[phase11] {short_name(name)}: {r} registers"
+                + (f", {spill}" if spill else ""))
+
+    def rnd(rows, S, hd, dtype):
+        return torch.randn((rows, S, hd), generator=gen, device="cuda") \
+            .to(dtype)
+
+    cases = [
+        # (B·H, B·KH, S, hd, window, causal, softcap)
+        (2, 2, 256, 64, 0, True, 0.0), (2, 2, 256, 64, 128, True, 0.0),
+        (1, 1, 512, 128, 256, True, 0.0), (2, 2, 128, 64, 0, False, 0.0),
+        (1, 1, 256, 64, 64, True, 0.0), (1, 1, 384, 64, 200, True, 0.0),
+        (8, 4, 256, 64, 128, True, 0.0), (2, 2, 256, 64, 128, True, 50.0),
+        (2, 2, 256, 16, 8, True, 50.0), (2, 1, 256, 32, 0, True, 0.0),
+        (4, 2, 1024, 256, 300, True, 50.0), (1, 1, 64, 64, 0, True, 0.0)]
+    err_f32 = 0.0
+    for bh, bkh, S, hd, window, causal, cap in cases:
+        q, k, v = (rnd(n, S, hd, torch.float32) for n in (bh, bkh, bkh))
+        kw = dict(window=window, causal=causal, softcap=cap)
+        e = max_err(A.swa_attention(q, k, v, **kw),
+                    A.swa_attention_plain(q, k, v, **kw))
+        err_f32 = max(err_f32, e)
+        if not e <= TOL_SWA_F32:
+            raise AssertionError(
+                f"phase11 swa_attention f32 "
+                f"{(bh, bkh, S, hd, window, causal, cap)} kernel/plain "
+                f"max_abs_err {e!r}")
+    log(f"[phase11] {len(cases)} f32 cases ok, worst max_abs_err vs plain "
+        f"{err_f32!r} (tol {TOL_SWA_F32})")
+
+    cfg_H, cfg_KH, hd, cap, W = 16, 8, 256, 50.0, 4096
+    G = cfg_H // cfg_KH
+    lim = (TOL_SWA_BF16_RTOL, TOL_SWA_BF16_ATOL)
+    rows, err_bf16 = {}, 0.0
+    # planted faults, launched on the same inputs: the local band one kv
+    # tile wider, and the global layer with the first kv tile dropped for
+    # the last q tile (window S - 128)
+    for label, window, fault in (("local", W, W + FAULT_SHIFT),
+                                 ("global", 0, LM_SEQ - FAULT_SHIFT)):
+        q = rnd(cfg_H, LM_SEQ, hd, torch.bfloat16)
+        k, v = (rnd(cfg_KH, LM_SEQ, hd, torch.bfloat16) for _ in range(2))
+        kw = dict(window=window, causal=True, softcap=cap)
+        got = A.swa_attention(q, k, v, **kw)
+        bad = A.swa_attention(q, k, v, **dict(kw, window=fault))
+        e = use = use_bad = 0.0
+        for g in range(cfg_KH):
+            want = A.swa_attention_plain(q[g * G:(g + 1) * G],
+                                         k[g:g + 1], v[g:g + 1], **kw)
+            part = got[g * G:(g + 1) * G]
+            e = max(e, max_err(part, want))
+            use = max(use, limit_use(part, want, *lim))
+            use_bad = max(use_bad,
+                          limit_use(bad[g * G:(g + 1) * G], want, *lim))
+            if not within(part, want, *lim):
+                raise AssertionError(
+                    f"phase11 swa_attention bf16 {label} group {g} "
+                    f"kernel/plain mismatch (max_abs_err {e!r}, limit "
+                    f"use {use!r})")
+            del want, part
+        rms = float(got.float().pow(2).mean().sqrt())
+        del got, bad
+        log(f"[phase11] bf16 {label} limit (rtol {lim[0]}, atol {lim[1]}; "
+            f"output rms {rms:.4g}): kernel vs plain uses {use:.4f} of it, "
+            f"the planted fault (window {fault}) {use_bad:.4f}")
+        if not use_bad > 1.0:
+            raise AssertionError(
+                f"phase11 bf16 {label}: the limit passes a planted fault "
+                f"(window {fault} for {window}; use {use_bad!r})")
+        err_bf16 = max(err_bf16, e)
+        ms = cuda_ms(lambda: A.swa_attention(q, k, v, **kw), iters=5,
+                     warmup=1)
+        plain_ms = cuda_ms(lambda: A.swa_attention_plain(q, k, v, **kw),
+                           iters=2, warmup=1)
+        torch.cuda.empty_cache()
+        fn, lib_label, lib_out = library_attention(q, k, v, window, cap)
+        lib_ms = cuda_ms(fn, iters=5, warmup=1) if fn else None
+        lib_err = None
+        if lib_out is not None:
+            lib_err = max_err(lib_out, A.swa_attention(q, k, v, **kw))
+        del fn, lib_out
+        torch.cuda.empty_cache()
+        bound_ms, bound_by, f32_ms = swa_bounds(LM_SEQ, window, cfg_H,
+                                                cfg_KH, hd, 2, rate=rate)
+        flops = 4 * hd * band_pairs(LM_SEQ, window) * cfg_H
+        rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, f32_core_bound_ms=f32_ms,
+                           library_ms=lib_ms, library=lib_label, err=e,
+                           limit_use=use, fault_limit_use=use_bad)
+        log(f"[phase11] swa_attention gemma2 {label} (H 16, KH 8, hd 256, "
+            f"S {LM_SEQ}, window {window}, softcap 50, bf16): kernel "
+            f"{ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s), "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}, bf16 tensor cores), f32-core bound "
+            f"{f32_ms:.4f} ms, {lib_label} "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} ms"
+            f"{'' if lib_err is None else f' (max_abs_err vs kernel {lib_err:.3g})'}"
+            f", max_abs_err vs plain {e!r}")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows, err_f32, err_bf16
+
+
+def lm_model(cfg, gen):
+    from repro_torch.models import transformer as T
+    model = T.init_params(cfg, generator=gen, device="cuda")
+    sync()
+    return model
+
+
+def forward_runs(cfg, model, batch, *, reps=2):
+    """A warm-up forward, then ``reps`` timed ones; returns (the last
+    logits, seconds per forward, swa launches per forward)."""
+    from repro_torch.kernels import swa_attention as A
+    from repro_torch.models import transformer as T
+    launches, secs, logits = [], [], None
+    for i in range(reps + 1):
+        logits = None
+        before = A.launch_counts["swa_attention"]
+        (logits, _), s = wall(lambda: T.forward(cfg, model, batch))
+        launches.append(A.launch_counts["swa_attention"] - before)
+        if i:
+            secs.append(s)
+    return logits, sum(secs) / len(secs), launches
+
+
+def route_gap(logits, loss, logits_e, loss_e):
+    """The readings that hold one forward against the einsum route's."""
+    return dict(loss_rel=abs(loss - loss_e) / abs(loss_e),
+                max_dlogits=max_err(logits, logits_e),
+                top1=float((logits.argmax(dim=-1) == logits_e.argmax(dim=-1))
+                           .float().mean()))
+
+
+def route_compare(cfg, model, batch):
+    """Kernel route (the default on the card) against the einsum route:
+    logits of both, their lm_loss, the time per forward and the launches
+    per forward of each; then the kernel route with a planted fault (every
+    local layer's window one kv tile wider), held against the einsum route
+    in the same way."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import swa_attention as A
+    from repro_torch.models import attention as TA
+    from repro_torch.models import transformer as T
+    from repro_torch.train.objective import lm_loss
+    logits_k, s_k, n_k = forward_runs(cfg, model, batch)
+    loss_k = float(lm_loss(cfg, model, batch)[0])
+    finite_k = bool(torch.isfinite(logits_k).all())
+    TA.set_flash_swa(False)
+    try:
+        logits_e, s_e, n_e = forward_runs(cfg, model, batch, reps=1)
+        loss_e = float(lm_loss(cfg, model, batch)[0])
+    finally:
+        TA.set_flash_swa(None)
+    finite_e = bool(torch.isfinite(logits_e).all())
+    gap = route_gap(logits_k, loss_k, logits_e, loss_e)
+    del logits_k
+    specs = model.specs
+    model.specs = T.layer_specs(dataclasses.replace(
+        cfg, sliding_window=cfg.sliding_window + FAULT_SHIFT))
+    before = A.launch_counts["swa_attention"]
+    try:
+        logits_f, _ = T.forward(cfg, model, batch)
+        fault = route_gap(logits_f, float(lm_loss(cfg, model, batch)[0]),
+                          logits_e, loss_e)
+    finally:
+        model.specs = specs
+    fault["launches"] = A.launch_counts["swa_attention"] - before
+    del logits_f, logits_e
+    torch.cuda.empty_cache()
+    return dict(s_kernel=s_k, s_einsum=s_e, launches_kernel=n_k,
+                launches_einsum=n_e, loss_kernel=loss_k, loss_einsum=loss_e,
+                finite=finite_k and finite_e, fault=fault, **gap)
+
+
+def phase12(gen, model, cfg, label):
+    """The gemma2-9b scoring forward at full width on both routes."""
+    import torch
+    S = LM_SEQ
+    V = cfg.vocab_size
+    batch = {"tokens": torch.randint(0, V, (1, S), generator=gen,
+                                     device="cuda"),
+             "labels": torch.randint(0, V, (1, S), generator=gen,
+                                     device="cuda")}
+    r = route_compare(cfg, model, batch)
+    n_attn = cfg.num_layers
+    log(f"[phase12] {label}: kernel route {r['s_kernel']:.4f} s/forward "
+        f"({S / r['s_kernel']:.0f} tokens/s), swa launches per forward "
+        f"{r['launches_kernel']}; einsum route {r['s_einsum']:.4f} "
+        f"s/forward ({S / r['s_einsum']:.0f} tokens/s), launches "
+        f"{r['launches_einsum']}; lm_loss kernel {r['loss_kernel']!r} "
+        f"einsum {r['loss_einsum']!r} (rel {r['loss_rel']:.3g}); "
+        f"max|dlogits| {r['max_dlogits']:.4g}, top-1 agreement "
+        f"{r['top1']:.5f}, finite {r['finite']}; planted fault (window "
+        f"+{FAULT_SHIFT}) vs einsum: lm_loss rel {r['fault']['loss_rel']:.3g}"
+        f", max|dlogits| {r['fault']['max_dlogits']:.4g}, top-1 "
+        f"{r['fault']['top1']:.5f}")
+    if not (all(n == n_attn for n in r["launches_kernel"])
+            and all(n == 0 for n in r["launches_einsum"])):
+        raise AssertionError(
+            f"phase12 {label}: launches per forward {r['launches_kernel']} "
+            f"(kernel route), {r['launches_einsum']} (einsum route); want "
+            f"{n_attn} and 0")
+    if not r["finite"]:
+        raise AssertionError(f"phase12 {label}: non-finite logits")
+    return r
+
+
+def phase13(gen, model, cfg, label, cache_dtype):
+    """Greedy serving at full width: B=2 prompts of SERVE_PROMPT tokens,
+    SERVE_NEW new tokens (max_seq 4608 > the 4096 window: ring caches on
+    the local layers), run twice, and the teacher-forced forward over
+    prompt + tokens on the kernel route (4608 = 36·128)."""
+    import torch
+    from repro_torch.kernels import swa_attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import GenerateConfig, generate, prefill
+    B, P, N = 2, SERVE_PROMPT, SERVE_NEW
+    max_seq = P + N
+    prompt = torch.randint(2, cfg.vocab_size, (B, P), generator=gen,
+                           device="cuda")
+    (_, caches), t_cold = wall(lambda: prefill(
+        cfg, model, prompt, max_seq=max_seq, cache_dtype=cache_dtype))
+    rings = sum("pos" in c for c in caches)
+    del caches
+    gcfg = GenerateConfig(max_new_tokens=N, eos_id=1)
+    runs = []
+    for _ in range(2):
+        runs.append(wall(lambda: generate(cfg, model, prompt, gcfg,
+                                          max_seq=max_seq,
+                                          cache_dtype=cache_dtype)))
+    (out, lengths, iters), t_gen = runs[0]
+    (out2, lengths2, iters2), t_gen2 = runs[1]
+    same = (torch.equal(out, out2) and torch.equal(lengths, lengths2)
+            and int(iters) == int(iters2))
+    before = A.launch_counts["swa_attention"]
+    full = torch.cat([prompt, out.long()], dim=1)
+    logits, _ = T.forward(cfg, model, {"tokens": full})
+    launched = A.launch_counts["swa_attention"] - before
+    exp = logits[:, P - 1:-1].argmax(dim=-1)
+    del logits
+    torch.cuda.empty_cache()
+    hits = total = 0
+    for b in range(B):
+        L = int(lengths[b])
+        hits += int((out[b, :L].long() == exp[b, :L]).sum())
+        total += L
+    agree = hits / total
+    # the generate runs each paid a warm prefill: subtract one timed warm
+    # (the first prefill above, t_cold, was the model's coldest)
+    pre = [wall(lambda: prefill(cfg, model, prompt, max_seq=max_seq,
+                                cache_dtype=cache_dtype)) for _ in range(2)]
+    t_pre = sum(t for _, t in pre) / len(pre)
+    (_, caches), _ = pre[-1]
+    del pre
+    t_gen_mean = (t_gen + t_gen2) / 2
+    decode_ms = (t_gen_mean - t_pre) / max(int(iters), 1) * 1e3
+    # decode steps on their own, after the prefill, under no_grad as in
+    # generate: 16 timed twice, then 4 under the profiler to see where a
+    # step's time goes
+    @torch.no_grad()
+    def decode(steps):
+        for i in range(steps):
+            T.decode_step(cfg, model, caches, out[:, i:i + 1], P + i)
+    decode(4)                                          # warm-up
+    step_ms = sum(wall(lambda: decode(16))[1] for _ in range(2)) / 32 * 1e3
+    steps = 4
+    secs, busy, rows = profiled(lambda: decode(steps))
+    del caches
+    torch.cuda.empty_cache()
+    log(f"[phase13] {label}: {steps} decode steps under the profiler: wall "
+        f"{secs / steps * 1e3:.3f} ms a step, device busy "
+        f"{busy / steps * 1e3:.3f} ms (idle share {1 - busy / secs:.3f}), "
+        f"{sum(r[1] for r in rows) / steps:.0f} kernels a step")
+    for us, count, key in rows[:6]:
+        log(f"[phase13]   {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    log(f"[phase13] {label}: B={B} prompt {P} + {N} new, max_seq {max_seq},"
+        f" {rings} ring-cache layers; prefill {t_pre:.4f} s (warm; the "
+        f"first {t_cold:.4f} s), generate {t_gen:.4f} / {t_gen2:.4f} s, "
+        f"iters {int(iters)}, decode {decode_ms:.3f} ms per step ((generate"
+        f" - warm prefill) / iters), decode_step alone {step_ms:.3f} ms; "
+        f"lengths {lengths.tolist()}; two runs identical {same}; "
+        f"teacher-forced forward {launched} swa launches, greedy = argmax "
+        f"on {hits}/{total} tokens ({agree:.4f})")
+    if not same:
+        raise AssertionError(f"phase13 {label}: two greedy runs differ")
+    if launched != cfg.num_layers or rings != cfg.num_layers // 2:
+        raise AssertionError(
+            f"phase13 {label}: teacher-forced forward launched {launched} "
+            f"kernels, {rings} ring caches")
+    return dict(prefill_s=t_pre, generate_s=(t_gen, t_gen2),
+                decode_ms=decode_ms, step_ms=step_ms, iters=int(iters),
+                agree=agree,
+                same=same, decode_idle=1 - busy / secs)
+
+
+def lm_phases(gen):
+    """Phases 12-13 (the main path of this slice): bf16 gemma2-9b at full
+    width and depth, then the tight f32 gates at full width and depth 2."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_ARCH)
+    model = lm_model(cfg, gen)
+    log(f"[phase12] {LM_ARCH} bf16: {cfg.num_layers} layers, d "
+        f"{cfg.d_model}, {sum(p.numel() for p in model.parameters()) / 1e9:.3f}"
+        f" B parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    r12 = phase12(gen, model, cfg, "bf16 full depth")
+    r13 = phase13(gen, model, cfg, "bf16 full depth", torch.bfloat16)
+    del model
+    torch.cuda.empty_cache()
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    model = lm_model(cfg2, gen)
+    r12f = phase12(gen, model, cfg2, "f32 depth 2")
+    r13f = phase13(gen, model, cfg2, "f32 depth 2", torch.float32)
+    del model
+    torch.cuda.empty_cache()
+    # the routes' gates, each held against its planted fault too: a gate
+    # that passes the fault cannot see a band off by one tile
+    gates = {"bf16 full depth": (r12, lambda g: (
+                 g["loss_rel"] <= TOL_LOSS_BF16
+                 and g["max_dlogits"] <= TOL_LOGITS_BF16
+                 and g["top1"] >= MIN_TOP1_BF16)),
+             "f32 depth 2": (r12f, lambda g: (
+                 g["loss_rel"] <= TOL_LOSS_F32
+                 and g["max_dlogits"] <= TOL_LOGITS_F32))}
+    for label, (r, passes) in gates.items():
+        log(f"[phase12] {label}: routes pass the gates {passes(r)}, the "
+            f"planted fault passes them {passes(r['fault'])}")
+        if not passes(r):
+            raise AssertionError(
+                f"phase12 {label}: routes differ: lm_loss rel "
+                f"{r['loss_rel']!r}, max|dlogits| {r['max_dlogits']!r}, "
+                f"top-1 {r['top1']!r}")
+        if passes(r["fault"]):
+            raise AssertionError(
+                f"phase12 {label}: the gates pass a planted fault "
+                f"({r['fault']})")
+    if r13f["agree"] != 1.0:
+        raise AssertionError("phase13 f32: greedy tokens differ from the "
+                             "teacher-forced argmax")
+    return r12, r13, r12f, r13f
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -949,7 +1450,10 @@ def main(argv=None) -> int:
               f"({ROOT / 'src' / 'repro_torch'} missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 gates: true f32
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import stencil2d as S
+    from repro_torch.kernels import swa_attention as A
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     card = phase0()
@@ -969,6 +1473,18 @@ def main(argv=None) -> int:
             raise AssertionError(f"the main path never launched {name}")
     ms_k, ms_p, bound_ms, bound_by, err5 = phase5(gen, SIZE, rate)
     rows5 = phase5_multistep(gen, SIZE, rate)
+    rows11, err11, err11_bf16 = phase11(gen, rate)
+    zero_counts()                                  # main path: 12-13
+    r12, r13, r12f, r13f = lm_phases(gen)
+    lm_launches = dict(A.launch_counts)
+    planted = r12["fault"]["launches"] + r12f["fault"]["launches"]
+    log(f"[main] launches on the LM path (phases 12-13): {lm_launches}, "
+        f"{planted} of them by the planted-fault forwards")
+    if lm_launches["swa_attention"] == 0:
+        raise AssertionError("the LM path never launched swa_attention")
+    swa = {key: (rows11["local"][key] + rows11["global"][key]) / 2
+           for key in ("ms", "plain_ms", "bound_ms", "f32_core_bound_ms")}
+    libs = [rows11[x]["library_ms"] for x in ("local", "global")]
     log(json.dumps({"kernels": [{
         "name": "stencil_sweep",
         "route": "cuda",
@@ -1005,6 +1521,38 @@ def main(argv=None) -> int:
         "bf16_max_abs_err": err8_bf16,
         "phases": {"launched": [9, 10],
                    "held_against_plain": [5, 8, 9, 10]},
+    }, {
+        "name": "swa_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/swa_attention.cu",
+        "replaces": "src/repro/kernels/swa_attention.py:32",
+        "launches": lm_launches["swa_attention"],
+        "max_abs_err": max(err11, err11_bf16),
+        "ms": swa["ms"],
+        "plain_ms": swa["plain_ms"],
+        "bound_ms": swa["bound_ms"],
+        "bound_by": rows11["global"]["bound_by"],
+        "library_ms": None if None in libs else sum(libs) / 2,
+        "library": rows11["global"]["library"],
+        "f32_core_bound_ms": swa["f32_core_bound_ms"],
+        "f32_max_abs_err": err11,
+        "bf16_max_abs_err": err11_bf16,
+        "by_layer": rows11,
+        "lm": {"forward_s": r12["s_kernel"], "einsum_forward_s":
+               r12["s_einsum"], "tokens_per_s": LM_SEQ / r12["s_kernel"],
+               "launches_per_forward": r12["launches_kernel"][0],
+               "loss_rel_bf16": r12["loss_rel"],
+               "max_dlogits_bf16": r12["max_dlogits"],
+               "top1_bf16": r12["top1"],
+               "max_dlogits_f32": r12f["max_dlogits"],
+               "loss_rel_f32": r12f["loss_rel"],
+               "fault_bf16": r12["fault"], "fault_f32": r12f["fault"],
+               "prefill_s": r13["prefill_s"], "decode_ms": r13["decode_ms"],
+               "decode_step_ms": r13["step_ms"],
+               "decode_idle_share": r13["decode_idle"],
+               "iters": r13["iters"], "greedy_agree_bf16": r13["agree"],
+               "greedy_agree_f32": r13f["agree"]},
+        "phases": {"launched": [12, 13], "held_against_plain": [11]},
     }]}))
     phase6(gen, SIZE)
     phase7(gen, SIZE, rate)

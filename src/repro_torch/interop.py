@@ -12,7 +12,11 @@ reference's arrays convert to) and rebuild it in the port's layout:
 * :func:`loop_result_from_numpy` — a reference ``LoopResult``;
 * :func:`elemental_from_reference` — a reference elemental-function factory
   name and its parameters → the port's :class:`~repro_torch.kernels.ref.
-  Elemental` (or :class:`~repro_torch.kernels.ref.Measure`).
+  Elemental` (or :class:`~repro_torch.kernels.ref.Measure`);
+* :func:`params_from_reference` — the reference LM's ``init_params`` tree
+  (leaves as numpy) → the port's :class:`~repro_torch.models.transformer.
+  Transformer`; :func:`caches_from_reference` — its decode caches → the
+  port's per-layer cache list.
 
 Nothing here imports the JAX package: names and arrays are the interface.
 """
@@ -21,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .configs.base import ArchConfig
 from .core.frames import FrameSpec, make_frame, make_lane_frames
 from .core.pattern import LoopResult
 from .device import resolve_device
@@ -103,3 +108,93 @@ def lane_frames_from_numpy(frames_np, *, m: int, n: int, pad: int, boundary,
             f"domains at pad {pad}")
     a = torch.tensor(dom, device=resolve_device(device))
     return make_lane_frames(a, spec, boundary)
+
+
+def tensor_from_numpy(arr, device) -> torch.Tensor:
+    """A numpy array (bfloat16 ones included, as JAX hands them out) as a
+    tensor on ``device``."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(arr.view(np.uint16).astype(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.tensor(arr, device=device)
+
+
+def reference_layers(cfg: ArchConfig, tree: dict) -> list:
+    """The per-layer subtrees of a reference ``{"prefix": [...], "unit":
+    [...]}`` tree, in the order the stack runs them: ``prefix[i]`` is layer
+    i, and ``unit[j]`` sliced at rep r is layer ``len(prefix) + r·len(unit)
+    + j``."""
+    prefix, unit, reps = cfg.block_pattern()
+    if len(tree["prefix"]) != len(prefix) or len(tree["unit"]) != len(unit):
+        raise ValueError(
+            f"tree holds {len(tree['prefix'])} prefix and {len(tree['unit'])}"
+            f" unit entries; {cfg.name}'s pattern has {len(prefix)} and "
+            f"{len(unit)}")
+
+    def rep(sub, r):
+        if isinstance(sub, dict):
+            return {k: rep(v, r) for k, v in sub.items()}
+        return np.asarray(sub)[r]
+    return list(tree["prefix"]) + [rep(tree["unit"][j], r)
+                                   for r in range(reps)
+                                   for j in range(len(unit))]
+
+
+def _leaf(tree: dict, dotted: str):
+    for key in dotted.split("."):
+        tree = tree[key]
+    return tree
+
+
+def _count_leaves(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_count_leaves(v) for v in tree.values())
+    return 1
+
+
+def _load(module: torch.nn.Module, tree: dict, where: str):
+    """Copy every parameter of ``module`` from the same-named leaf of
+    ``tree``; shapes must agree and no leaf may be left over."""
+    names = dict(module.named_parameters(recurse=True))
+    for name, param in names.items():
+        if "." in name and name.split(".")[0] == "layers":
+            continue
+        src = tensor_from_numpy(_leaf(tree, name), param.device)
+        if tuple(src.shape) != tuple(param.shape):
+            raise ValueError(f"{where}{name}: reference shape "
+                             f"{tuple(src.shape)} != {tuple(param.shape)}")
+        param.data.copy_(src)
+
+
+def params_from_reference(cfg: ArchConfig, params_np: dict, *,
+                          device=None):
+    """The reference's ``init_params(cfg, key)`` tree, leaves converted to
+    numpy, as the port's model on ``device`` (None: the CUDA card)."""
+    from .models.transformer import Transformer
+    dev = resolve_device(device)
+    model = Transformer(cfg, device=dev)          # storage filled below
+    top = {k: v for k, v in params_np.items() if k not in ("prefix", "unit")}
+    _load(model, top, "")
+    layers = reference_layers(cfg, params_np)
+    n_top = sum(1 for n, _ in model.named_parameters()
+                if not n.startswith("layers."))
+    if n_top != _count_leaves(top):
+        raise ValueError(f"reference top-level leaves {sorted(top)} do not "
+                         f"match the port's parameters")
+    for i, (layer, tree) in enumerate(zip(model.layers, layers)):
+        if _count_leaves(tree) != len(list(layer.parameters())):
+            raise ValueError(f"layer {i}: the reference holds "
+                             f"{_count_leaves(tree)} leaves, the port "
+                             f"{len(list(layer.parameters()))}")
+        _load(layer, tree, f"layers.{i}.")
+    return model
+
+
+def caches_from_reference(cfg: ArchConfig, caches_np: dict, *,
+                          device=None) -> list:
+    """The reference's decode caches (``init_cache`` / ``step_with_cache``
+    output, leaves as numpy) as the port's per-layer list of cache dicts."""
+    dev = resolve_device(device)
+    return [{k: tensor_from_numpy(v, dev) for k, v in c.items()}
+            for c in reference_layers(cfg, caches_np)]

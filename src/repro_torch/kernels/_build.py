@@ -23,13 +23,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-SOURCES = ("stencil2d.cu", "multistep.cu")
+SOURCES = ("stencil2d.cu", "multistep.cu", "swa_attention.cu")
 HEADERS = ("elementals.cuh", "fold.cuh", "dispatch.cuh")
 # --fmad=false: no multiply-add contraction, so the functors round exactly
 # like the plain PyTorch bodies; no --use_fast_math (IEEE div and sqrtf).
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
-LIB_NAME = "libstencil2d.so"
+LIB_NAME = "libkernels.so"
 
 
 def nvcc_path() -> str:
@@ -132,6 +132,11 @@ def library() -> ctypes.CDLL:
         i, i,                        # monoid, measure
         vp, vp, vp, vp, vp]          # live, partials, ticket, result, stream
     lib.multistep_sweep.restype = i
+    lib.swa_attention_fwd.argtypes = [
+        i, i, vp, vp, vp, vp,        # dtype, head_dim, q, k, v, out
+        i, i, i, i, i,               # bh, bkh, S, window, causal
+        ctypes.c_float, ctypes.c_float, vp]   # scale, softcap, stream
+    lib.swa_attention_fwd.restype = i
     lib.stencil_error_string.argtypes = [i]
     lib.stencil_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,121 @@
+"""Sliding-window flash attention (sequence stencil) with native GQA.
+
+PyTorch/CUDA twin of :mod:`repro.kernels.swa_attention`.  The TPU kernel
+``_swa_kernel`` becomes the hand-written CUDA kernel in
+``csrc/swa_attention.cu`` (built at first use by :mod:`._build`): one CTA
+per (64-row q block, query head), an online softmax over the kv tiles
+inside the band only, m/l/acc in float32, kv head = query head // G.
+
+* :func:`swa_attention` — the wrapper: on CUDA tensors it launches the
+  kernel or raises; on CPU tensors it runs the plain version.
+* :func:`swa_attention_plain` — the same function in torch ops: dense
+  masked softmax in float32 with the kernel's scaling order (q scaled
+  before the dot), softcap, ``NEG_INF`` and GQA by index.  For the tests
+  and the CPU; its (B·H, S, S) scores make it no path for long sequences.
+
+Layouts are the reference's: q (B·H, S, hd), k and v (B·KH, S, hd), the
+output in q's shape and dtype.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+NEG_INF = -2.0 ** 30
+HEAD_DIMS = (16, 32, 64, 128, 256)
+DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
+TILE = 128            # the reference's bq = bk: S must tile by min(128, S)
+
+# launches of the kernel (the wrapper adds one per launch, nowhere else)
+launch_counts = {"swa_attention": 0}
+
+
+def _check(q, k, v, window: int):
+    if q.ndim != 3 or k.ndim != 3 or v.ndim != 3:
+        raise ValueError(
+            f"q, k, v must be (rows, S, hd); got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}")
+    BH, S, hd = q.shape
+    if k.shape != v.shape or k.shape[1:] != (S, hd):
+        raise ValueError(
+            f"k and v must be (B·KH, {S}, {hd}); got {tuple(k.shape)} and "
+            f"{tuple(v.shape)}")
+    if k.shape[0] == 0 or BH % k.shape[0]:
+        raise ValueError(
+            f"q heads must be a multiple of kv heads; got {BH} q rows and "
+            f"{k.shape[0]} kv rows")
+    if q.dtype not in DTYPE_IDS or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(
+            f"q, k, v must share one dtype of float32 or bfloat16; got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} has no kernel; choose from "
+                         f"{HEAD_DIMS}")
+    if S % min(TILE, S):
+        raise ValueError(f"S must tile: S={S} is no multiple of {TILE}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0; got {window}")
+
+
+def swa_attention_plain(q, k, v, *, window: int = 0, causal: bool = True,
+                        softcap: float = 0.0):
+    """Masked softmax attention in float32, as the kernel computes it:
+    ``q · (1/√hd)`` before the dot, then ``softcap·tanh(s/softcap)``, then
+    the causal/window mask at ``NEG_INF``; kv row ``b // G`` for q row
+    ``b``.  Returns q's shape and dtype."""
+    BH, S, hd = q.shape
+    G = BH // k.shape[0]
+    scale = float(1.0 / math.sqrt(hd))
+    rows = torch.arange(BH, device=q.device) // G
+    qf = q.float() * scale
+    s = qf @ k.float()[rows].transpose(-1, -2)              # (BH, S, S)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    qp = torch.arange(S, device=q.device)[:, None]
+    kp = torch.arange(S, device=q.device)[None, :]
+    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= kp <= qp
+    if window:
+        ok &= kp > qp - window
+    s = torch.where(ok[None], s, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return (p @ v.float()[rows]).to(q.dtype)
+
+
+def swa_attention(q, k, v, *, window: int = 0, causal: bool = True,
+                  softcap: float = 0.0):
+    """Flash sliding-window attention with native GQA.
+
+    q: (B·H, S, hd); k, v: (B·KH, S, hd), float32 or bfloat16, with hd in
+    :data:`HEAD_DIMS` and S a multiple of min(128, S).  On a CUDA tensor
+    this launches ``csrc/swa_attention.cu`` (contiguous inputs) or raises;
+    on a CPU tensor it runs :func:`swa_attention_plain`."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return swa_attention_plain(q, k, v, window=window, causal=causal,
+                                   softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    if not (k.device == q.device and v.device == q.device):
+        raise ValueError("q, k and v must lie on one device")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("the kernel takes contiguous q, k and v")
+    BH, S, hd = q.shape
+    out = torch.empty_like(q)
+
+    from . import _build
+    lib = _build.library()
+    rc = lib.swa_attention_fwd(
+        DTYPE_IDS[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), BH, k.shape[0], S, int(window), int(bool(causal)),
+        ctypes.c_float(1.0 / math.sqrt(hd)), ctypes.c_float(softcap),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"swa_attention launch failed ({rc}): "
+            f"{lib.stencil_error_string(rc).decode()}")
+    launch_counts["swa_attention"] += 1
+    return out

@@ -8,7 +8,10 @@ package, so the tests run on a machine with a card and PyTorch alone:
 
 ``chip_smoke.py`` runs the full-size versions of these checks.  Tolerances:
 float32 grids within 1e-5 (measured bit-identical), float sums rel 1e-5,
-bf16 5e-2 (rtol and atol).
+bf16 5e-2 (rtol and atol).  Attention: the kernel against its plain
+version within atol 2e-5 in float32 and atol = rtol = 3e-2 in bf16 (the
+reference's own); the flash route against the einsum route within atol
+1e-4 on float32 logits (online against dense softmax, TF32 off).
 """
 import numpy as np
 import pytest
@@ -20,6 +23,7 @@ from repro_torch.core.frames import (frame_env, frame_spec, make_frame,
 from repro_torch.kernels import multistep as TM
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels import stencil2d as TK
+from repro_torch.kernels import swa_attention as TS
 
 BOUNDARIES = ["zero", "nan", "reflect", "wrap"]
 # mirror-asymmetric weights: the reference test's `lopsided` stencil
@@ -184,3 +188,105 @@ def test_cuda_farm_run_matches_solo_runs(cuda, backend, unroll, key):
         backend="torch", device=cuda).farm_run(batch)
     assert ref.iters.tolist() == iters
     torch.testing.assert_close(got.a, ref.a, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# sliding-window attention and the LM forward
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_f32(cuda, monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    return cuda
+
+
+SWA_CASES = [
+    # (B·H, B·KH, S, hd, window, causal, softcap)
+    (2, 2, 256, 64, 0, True, 0.0),
+    (2, 2, 256, 64, 128, True, 0.0),
+    (1, 1, 512, 128, 256, True, 0.0),
+    (2, 2, 128, 64, 0, False, 0.0),
+    (1, 1, 256, 64, 64, True, 0.0),
+    (1, 1, 384, 64, 200, True, 0.0),
+    (8, 4, 256, 64, 128, True, 0.0),         # GQA, B=2 H=4 KH=2
+    (2, 2, 256, 64, 128, True, 50.0),
+    (2, 2, 256, 16, 8, True, 50.0),
+    (2, 1, 256, 32, 0, True, 0.0),
+    (2, 1, 384, 256, 100, True, 50.0),
+    (1, 1, 64, 64, 0, True, 0.0),             # S < 128 tiles by S
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SWA_CASES)
+def test_cuda_swa_attention_matches_plain(cuda_f32, case, dtype):
+    bh, bkh, S, hd, window, causal, cap = case
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.as_tensor(field(40 + i, (rows, S, hd)), device=cuda_f32)
+               .to(dt) for i, rows in enumerate((bh, bkh, bkh)))
+    before = TS.launch_counts["swa_attention"]
+    got = TS.swa_attention(q, k, v, window=window, causal=causal,
+                           softcap=cap)
+    torch.cuda.synchronize()
+    assert TS.launch_counts["swa_attention"] == before + 1
+    want = TS.swa_attention_plain(q, k, v, window=window, causal=causal,
+                                  softcap=cap)
+    assert got.dtype == dt and got.shape == q.shape
+    tol = dict(atol=2e-5, rtol=0) if dt == torch.float32 else \
+        dict(atol=3e-2, rtol=3e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_cuda_swa_window_one_is_the_identity(cuda_f32):
+    q, k, v = (torch.as_tensor(field(50 + i, (1, 128, 64)), device=cuda_f32)
+               for i in range(3))
+    torch.testing.assert_close(TS.swa_attention(q, k, v, window=1), v,
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2])
+def test_cuda_forward_routes_agree_and_count_launches(cuda_f32, batch):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import attention as TA
+    from repro_torch.models import transformer as TT
+    cfg = get_reduced("gemma2-9b")
+    model = TT.init_params(cfg, seed=0, device=cuda_f32)
+    tokens = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (batch, 256)),
+        device=cuda_f32)
+    before = TS.launch_counts["swa_attention"]
+    flash, _ = TT.forward(cfg, model, {"tokens": tokens})
+    assert TS.launch_counts["swa_attention"] - before == cfg.num_layers
+    TA.set_flash_swa(False)
+    try:
+        einsum, _ = TT.forward(cfg, model, {"tokens": tokens})
+    finally:
+        TA.set_flash_swa(None)
+    assert TS.launch_counts["swa_attention"] - before == cfg.num_layers
+    assert bool(torch.isfinite(flash).all())
+    torch.testing.assert_close(flash, einsum, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_greedy_equals_teacher_forced_argmax(cuda_f32):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as TT
+    from repro_torch.serve import GenerateConfig, generate
+    cfg = get_reduced("gemma2-9b")
+    model = TT.init_params(cfg, seed=1, device=cuda_f32)
+    prompt = np.random.default_rng(1).integers(2, cfg.vocab_size, (2, 120))
+    out, lengths, iters = generate(cfg, model, prompt,
+                                   GenerateConfig(max_new_tokens=8),
+                                   cache_dtype=torch.float32)
+    full = torch.cat([torch.as_tensor(prompt, device=cuda_f32),
+                      out.long()], dim=1)
+    before = TS.launch_counts["swa_attention"]
+    logits, _ = TT.forward(cfg, model, {"tokens": full})   # 128: flash
+    assert TS.launch_counts["swa_attention"] - before == cfg.num_layers
+    exp = logits[:, 119:-1].argmax(dim=-1)
+    for b in range(2):
+        L = int(lengths[b])
+        assert torch.equal(out[b, :L].long(), exp[b, :L])

@@ -35,7 +35,9 @@ def test_port_imports_no_jax_and_no_reference_package(path):
 def test_scan_covers_the_port():
     names = {p.name for p in PORT_FILES}
     assert {"pattern.py", "stencil2d.py", "multistep.py", "ops.py",
-            "interop.py", "chip_smoke.py", "helmholtz.py"} <= names
+            "interop.py", "chip_smoke.py", "helmholtz.py", "swa_attention.py",
+            "attention.py", "layers.py", "transformer.py", "objective.py",
+            "engine.py", "base.py", "gemma2_9b.py"} <= names
 
 
 @pytest.fixture
@@ -61,6 +63,28 @@ def test_default_device_raises_without_a_card(cpu_only_host):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LoopOfStencilReduce(f=R.jacobi_taps(), cond=lambda r: True)
     assert resolve_device("cpu").type == "cpu"      # asked for: fine
+
+
+def test_lm_entry_points_raise_without_a_card(cpu_only_host):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import GenerateConfig, generate
+    from repro_torch.train.objective import lm_loss
+    cfg = get_reduced("gemma2-9b")
+    tokens = np.zeros((1, 8), np.int64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_params(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_cache(cfg, 1, 16)
+    model = T.init_params(cfg, device="cpu")        # asked for: fine
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.forward(cfg, model, {"tokens": tokens})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm_loss(cfg, model, {"tokens": tokens, "labels": tokens})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate(cfg, model, tokens, GenerateConfig(max_new_tokens=2))
+    logits, _ = T.forward(cfg, model, {"tokens": tokens}, device="cpu")
+    assert logits.device.type == "cpu"
 
 
 def test_cuda_backend_on_cpu_tensors_raises():
@@ -92,3 +116,16 @@ def test_unregistered_lambda_raises_before_any_launch():
     with pytest.raises(ValueError, match="no kernel"):
         S.stencil2d_fused_framed(frame, R.jacobi_taps(), spec)
     assert S.launch_counts == before
+
+
+def test_flash_route_on_a_card_tensor_never_runs_the_plain_version(
+        monkeypatch):
+    """The attention's flash route hands CUDA-side tensors to the kernel
+    wrapper, which launches or raises; the plain version is never
+    called for them."""
+    from repro_torch.kernels import swa_attention as TS
+    monkeypatch.setattr(TS, "swa_attention_plain", lambda *a, **k: (
+        pytest.fail("plain version called for a non-CPU tensor")))
+    q = torch.zeros((2, 128, 16), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        TS.swa_attention(q, q, q)

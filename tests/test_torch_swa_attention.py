@@ -1,0 +1,113 @@
+"""The port's sliding-window attention against the JAX package on the CPU.
+
+On CPU tensors the port's wrapper runs its plain version, which is held
+here against the reference's Pallas kernel in interpret mode and against
+its oracle.  Tolerances: atol 2e-5 in float32 (the reference test's own;
+dense softmax against an online softmax over 128-key blocks), atol = rtol
+= 3e-2 in bf16 (the reference's bf16 tolerance).  The kernel itself is
+held against the plain version on the card (tests/test_torch_cuda.py,
+chip_smoke.py phase 11).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.swa_attention import swa_attention as jax_swa
+from repro.kernels.swa_attention import swa_attention_ref
+from repro_torch.kernels import swa_attention as TS
+
+# the reference test's shapes (tests/kernels/test_swa_attention.py)
+SHAPES = [
+    ((2, 256, 64), 0, True),
+    ((2, 256, 64), 128, True),
+    ((1, 512, 128), 256, True),
+    ((2, 128, 64), 0, False),
+    ((1, 256, 64), 64, True),
+    ((1, 384, 64), 200, True),
+]
+
+
+def qkv(seed, q_rows, kv_rows, S, hd):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(q_rows, S, hd)).astype(np.float32),
+            rng.normal(size=(kv_rows, S, hd)).astype(np.float32),
+            rng.normal(size=(kv_rows, S, hd)).astype(np.float32))
+
+
+def port(q, k, v, dtype=torch.float32, **kw):
+    t = [torch.as_tensor(a).to(dtype) for a in (q, k, v)]
+    return TS.swa_attention(*t, **kw)
+
+
+@pytest.mark.parametrize("shape,window,causal", SHAPES)
+def test_plain_matches_jax_kernel(shape, window, causal):
+    q, k, v = qkv(0, shape[0], shape[0], shape[1], shape[2])
+    want = jax_swa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   window=window, causal=causal, interpret=True)
+    got = port(q, k, v, window=window, causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("case", ["gqa", "softcap", "hd16"])
+def test_plain_matches_jax_kernel_gqa_softcap_hd16(case):
+    B, H, KH, S, hd, window, cap = 1, 2, 2, 256, 64, 128, 0.0
+    if case == "gqa":
+        B, H, KH = 2, 4, 2
+    elif case == "softcap":
+        cap = 50.0
+    else:
+        hd, window = 16, 8
+    q, k, v = qkv(1, B * H, B * KH, S, hd)
+    want = jax_swa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   window=window, softcap=cap, interpret=True)
+    got = port(q, k, v, window=window, softcap=cap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+def test_plain_matches_jax_kernel_bf16():
+    q, k, v = qkv(2, 2, 2, 256, 64)
+    bf = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    want = jax_swa(*bf, window=128, interpret=True)
+    got = port(q, k, v, dtype=torch.bfloat16, window=128)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("shape,window,causal", SHAPES[:3])
+def test_plain_matches_oracle(shape, window, causal):
+    q, k, v = qkv(3, shape[0], shape[0], shape[1], shape[2])
+    want = swa_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             window=window, causal=causal)
+    got = TS.swa_attention_plain(*map(torch.as_tensor, (q, k, v)),
+                                 window=window, causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+def test_window_one_is_the_identity():
+    q, k, v = qkv(4, 1, 1, 128, 64)
+    got = port(q, k, v, window=1, causal=True)
+    np.testing.assert_allclose(got.numpy(), v, atol=1e-5)
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    q, k, v = (torch.as_tensor(a) for a in qkv(5, 2, 2, 256, 64))
+    before = dict(TS.launch_counts)
+    with pytest.raises(ValueError, match="head_dim"):
+        TS.swa_attention(q[..., :48], k[..., :48], v[..., :48])
+    with pytest.raises(ValueError, match="dtype"):
+        TS.swa_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="S must tile"):
+        TS.swa_attention(q[:, :200], k[:, :200], v[:, :200])
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        TS.swa_attention(q[:1], k, v)
+    with pytest.raises(ValueError, match="k and v"):
+        TS.swa_attention(q, k, v[:, :128])
+    with pytest.raises(ValueError, match="window"):
+        TS.swa_attention(q, k, v, window=-1)
+    # a tensor on a device with no kernel is refused, not run plainly
+    with pytest.raises(ValueError, match="no kernel"):
+        TS.swa_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    assert TS.launch_counts == before
