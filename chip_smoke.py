@@ -3,7 +3,8 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 (the single-step stencil+reduce sweep, the temporal-blocking multistep
-sweep and the sliding-window flash attention), holds each against its plain
+sweep and the sliding-window flash attention: bf16 at hd 64/128/256 on the
+tensor cores, the rest on CUDA cores), holds each against its plain
 PyTorch version, and drives the port's main paths — the persistent-frame
 Loop-of-stencil-reduce on "cuda" and "cuda-multistep", the lane farm
 ``farm_run``, the paper's §4 apps, and the gemma2-9b scoring forward and
@@ -28,12 +29,19 @@ greedy serving — on one CUDA card at full size:
  10. farm_run of 8 full-HD restoration lanes with different noise levels,
      on "cuda" and "cuda-multistep" (T=3), against solo runs and "torch";
   5. per-kernel timings at the main path's shape;
- 11. swa_attention vs plain: the reference test's shapes in f32 (GQA,
-     softcap, every head_dim), gemma2-9b's local and global layers at
-     S=8192 in bf16 within one bf16 ulp, a planted fault (the band one kv
-     tile off) held to the same limit and required to fail it; per-launch
-     times with both bounds, the plain version's time and a library
-     call's (flex_attention), registers;
+ 11. swa_attention vs plain on both routes (bf16 at hd 64/128/256 on the
+     wgmma kernel, the rest on the CUDA-core one): the reference test's
+     shapes (GQA, softcap, every head_dim) in f32 within 2e-5 and their
+     bf16 twins within one bf16 ulp, each call counted on its route;
+     gemma2-9b's local and global layers at S=8192 on each route as the
+     LM path gives them (bf16 on wgmma within one bf16 ulp, f32 on the
+     CUDA cores within 2e-5), each with a planted fault (the band one kv
+     tile off) held to the same limit and required to fail it; per route
+     and layer the time a launch and TFLOP/s, the function's bound at
+     the type's peak (bf16: also the split design's, P·V twice: 1.5x the
+     tensor-core work), the plain version's time and a library call's
+     (flex_attention); registers and spills of both kernels (a spill
+     fails the phase);
  12. gemma2-9b at full width and depth in bf16, B=1, S=8192: the scoring
      forward on the kernel route (42 launches a forward) and on the einsum
      route, lm_loss, max|dlogits| and top-1 agreement gated; then in f32
@@ -51,9 +59,11 @@ greedy serving — on one CUDA card at full size:
 
 Every phase runs, at the sizes above, in the order listed.  Phases 2-4, 9
 and 10 are the stencil main path: the kernel launch counts are zeroed just
-before phase 2 and read just after phase 10.  Phases 12-13 are the LM main
-path: the counts are zeroed just before phase 12 and read just after phase
-13.  Every phase's failure propagates:
+before phase 2 and read just after phase 10 (the multistep launches also
+by T).  Phases 12-13 are the LM main path: the counts (the attention's
+by route) are zeroed just before phase 12 and read just after phase 13;
+the bf16 layers must take the wgmma route and the f32 ones the CUDA-core
+route, and each route is its own entry of the ``kernels`` line.  Every phase's failure propagates:
 the exit code is non-zero and the final ok line is not printed.  Without a
 CUDA card, or without the repository around it, the script exits non-zero
 before printing any result.
@@ -190,6 +200,12 @@ def zero_counts():
             counts[key] = 0
 
 
+def swa_launches() -> int:
+    """swa_attention's launches on both routes."""
+    from repro_torch.kernels import swa_attention as A
+    return sum(A.launch_counts.values())
+
+
 def same_scalar(a, b, rel) -> bool:
     a, b = float(a), float(b)
     if math.isnan(a) or math.isnan(b):
@@ -221,6 +237,10 @@ def ptxas_entries(blog: str):
 def short_name(mangled: str) -> str:
     """``kernel<storage, functor>`` from a mangled instantiation name."""
     storage = "bf16" if "nv_bfloat16" in mangled else "f32"
+    if "swa_wgmma_kernel" in mangled:
+        hd = mangled.split("swa_wgmma_kernel", 1)[1].split("Li", 1)[1] \
+            .split("E", 1)[0]
+        return f"swa_wgmma_kernel<bf16, hd={hd}>"
     if "swa_kernel" in mangled:
         hd = mangled.split("swa_kernel", 1)[1].split("Li", 1)[1] \
             .split("E", 1)[0]
@@ -870,6 +890,7 @@ def phase9(gen, size, ms_single):
     sweeps against "torch" at the same unroll, and the converging solve
     (equal iters to "torch", within [iters on "cuda" at T=1, that + T))."""
     import torch
+    from repro_torch.kernels import stencil2d as S
     u0 = torch.zeros((size, size), device="cuda")
     fxy = torch.randn((size, size), generator=gen, device="cuda")
     fixed = dict(alpha=0.5, dx=1.0 / 512, tol=0.0, cond=lambda r: False)
@@ -877,6 +898,7 @@ def phase9(gen, size, ms_single):
     iters_t1 = int(helmholtz_loop(u0, fxy, backend="cuda", **conv).iters)
     sweeps, errs, rows = 200, [], {}
     for T in (2, 4, 8):
+        before = S.launch_counts["multistep_sweep"]
         helmholtz_loop(u0, fxy, max_iters=2 * T, backend="cuda-multistep",
                        unroll=T, **fixed)
         rk, tk = wall(lambda: helmholtz_loop(
@@ -908,7 +930,8 @@ def phase9(gen, size, ms_single):
             raise AssertionError(f"phase9 multistep T={T} mismatch")
         errs += [err, cerr]
         rows[T] = dict(ms_sweep=ms_k, torch_ms_sweep=ms_p, iters=ik,
-                       solve_s=tck)
+                       solve_s=tck, launches=S.launch_counts[
+                           "multistep_sweep"] - before)
     return max(errs), rows
 
 
@@ -962,6 +985,7 @@ def phase10(gen):
     rows = {}
     for backend, T, key in (("cuda", 1, "stencil_sweep"),
                             ("cuda-multistep", 3, "multistep_sweep")):
+        first = S.launch_counts[key]
         loop(backend, T).farm_run(  # warm-up
             init[:2], env=(noisy[:2], masks[:2]))
         lp = loop(backend, T)
@@ -997,7 +1021,8 @@ def phase10(gen):
             raise AssertionError(f"phase10 farm_run on {backend} mismatch")
         rows[backend] = dict(ms_frame=tf * 1e3 / lanes,
                              solo_ms_frame=ts * 1e3 / lanes, iters=iters,
-                             err=max(e_solo, e_torch))
+                             err=max(e_solo, e_torch), unroll=T,
+                             launches=S.launch_counts[key] - first)
     return rows
 
 
@@ -1015,16 +1040,19 @@ def band_pairs(S: int, window: int) -> int:
 
 
 def swa_bounds(S, window, H, KH, hd, elem, B=1, rate=3.35e12):
-    """(bound_ms, bound_by, f32_core_ms): bytes of q, k, v read once and o
+    """(bound_ms, bound_by, split_ms): bytes of q, k, v read once and o
     written once, against 4·hd flops per visible (q, k) pair and head (two
-    products, multiply and add) at the type's peak rate."""
+    products, multiply and add) at the type's peak rate (bf16: tensor
+    cores; f32: CUDA cores); and for bf16 the split design's bound, whose
+    P·V runs twice (P_hi and P_lo): 6·hd flops a pair (None for f32)."""
     nbytes = B * (2 * H + 2 * KH) * S * hd * elem
     flops = 4 * hd * band_pairs(S, window) * H * B
     peak = BF16_RATE if elem == 2 else FP32_RATE
     t_bytes, t_ops = nbytes / rate, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations",
-            flops / FP32_RATE * 1e3)
+            max(t_bytes, 1.5 * flops / BF16_RATE) * 1e3 if elem == 2
+            else None)
 
 
 def library_attention(q, k, v, window, cap):
@@ -1080,24 +1108,40 @@ def library_attention(q, k, v, window, cap):
 
 
 def phase11(gen, rate):
-    """swa_attention kernel vs its plain version: the reference test's
-    shapes (plus GQA, softcap, every head_dim) in f32, and gemma2-9b's
-    local and global layers at S=8192 in bf16 (the plain version one kv
-    head group at a time); per-launch times at the gemma2 shapes with both
-    bounds, the plain version's time and a library call's."""
+    """swa_attention's kernels vs its plain version: registers and spills
+    of both routes; the reference test's shapes (plus GQA, softcap, every
+    head_dim) in f32 and in bf16 (each on its route); gemma2-9b's local
+    and global layers at S=8192 on both routes as the LM path runs them
+    (bf16 on the wgmma kernel, f32 on the CUDA-core one; the plain version
+    one kv head group at a time), with per-launch times, the bounds, the
+    plain version's time and a library call's.  Returns ({route: {layer:
+    row}}, {route: worst max_abs_err})."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import swa_attention as A
 
+    spills = []
     for name, r, spill in ptxas_entries(
             (_build.build_dir() / "build.log").read_text()):
-        if "swa_kernel" in name:
-            log(f"[phase11] {short_name(name)}: {r} registers"
-                + (f", {spill}" if spill else ""))
+        if "swa_kernel" in name or "swa_wgmma_kernel" in name:
+            log(f"[phase11] {short_name(name)}: {r} registers, "
+                f"{spill or 'no spills'}")
+            if spill:
+                spills.append(short_name(name))
+    if spills:
+        raise AssertionError(f"phase11: the SWA kernels spill: {spills}")
 
     def rnd(rows, S, hd, dtype):
         return torch.randn((rows, S, hd), generator=gen, device="cuda") \
             .to(dtype)
+
+    def launch(route, *args, **kw):
+        before = dict(A.launch_counts)
+        out = A.swa_attention(*args, **kw)
+        if A.launch_counts[route] != before[route] + 1:
+            raise AssertionError(f"phase11: a call missed the {route} "
+                                 "route")
+        return out
 
     cases = [
         # (B·H, B·KH, S, hd, window, causal, softcap)
@@ -1107,91 +1151,126 @@ def phase11(gen, rate):
         (8, 4, 256, 64, 128, True, 0.0), (2, 2, 256, 64, 128, True, 50.0),
         (2, 2, 256, 16, 8, True, 50.0), (2, 1, 256, 32, 0, True, 0.0),
         (4, 2, 1024, 256, 300, True, 50.0), (1, 1, 64, 64, 0, True, 0.0)]
-    err_f32 = 0.0
+    lims = {torch.bfloat16: (TOL_SWA_BF16_RTOL, TOL_SWA_BF16_ATOL),
+            torch.float32: (0.0, TOL_SWA_F32)}
+    err = dict.fromkeys(A.launch_counts, 0.0)
+    err_f32 = use_twin = 0.0
+    twin_routes = dict.fromkeys(A.launch_counts, 0)
     for bh, bkh, S, hd, window, causal, cap in cases:
-        q, k, v = (rnd(n, S, hd, torch.float32) for n in (bh, bkh, bkh))
         kw = dict(window=window, causal=causal, softcap=cap)
-        e = max_err(A.swa_attention(q, k, v, **kw),
+        q, k, v = (rnd(n, S, hd, torch.float32) for n in (bh, bkh, bkh))
+        e = max_err(launch("cuda_core", q, k, v, **kw),
                     A.swa_attention_plain(q, k, v, **kw))
         err_f32 = max(err_f32, e)
+        err["cuda_core"] = max(err["cuda_core"], e)
         if not e <= TOL_SWA_F32:
             raise AssertionError(
                 f"phase11 swa_attention f32 "
                 f"{(bh, bkh, S, hd, window, causal, cap)} kernel/plain "
                 f"max_abs_err {e!r}")
+        # the bf16 twin, on the route its head_dim takes
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        route = A._route(torch.bfloat16, hd)
+        got = launch(route, q, k, v, **kw)
+        want = A.swa_attention_plain(q, k, v, **kw)
+        twin_routes[route] += 1
+        err[route] = max(err[route], max_err(got, want))
+        use = limit_use(got, want, *lims[torch.bfloat16])
+        use_twin = max(use_twin, use)
+        if not within(got, want, *lims[torch.bfloat16]):
+            raise AssertionError(
+                f"phase11 swa_attention bf16 "
+                f"{(bh, bkh, S, hd, window, causal, cap)} kernel/plain "
+                f"outside one bf16 ulp (use {use!r})")
     log(f"[phase11] {len(cases)} f32 cases ok, worst max_abs_err vs plain "
-        f"{err_f32!r} (tol {TOL_SWA_F32})")
+        f"{err_f32!r} (tol {TOL_SWA_F32}); their bf16 twins ok "
+        f"(routes {twin_routes}), {use_twin:.4f} of the one-ulp limit; "
+        f"worst max_abs_err by route {err}")
 
     cfg_H, cfg_KH, hd, cap, W = 16, 8, 256, 50.0, 4096
     G = cfg_H // cfg_KH
-    lim = (TOL_SWA_BF16_RTOL, TOL_SWA_BF16_ATOL)
-    rows, err_bf16 = {}, 0.0
-    # planted faults, launched on the same inputs: the local band one kv
-    # tile wider, and the global layer with the first kv tile dropped for
-    # the last q tile (window S - 128)
+    rows = {}
+    # each route at the shapes the LM path gives it: bf16 at full depth on
+    # the wgmma kernel, f32 at depth 2 on the CUDA-core one, on one draw
+    # of bf16 inputs per layer (the f32 route takes them widened, so the
+    # generator reaches phase 12 in the same state as before the f32
+    # check was added).  Planted faults, launched on the same inputs: the
+    # local band one kv tile wider, and the global layer with the first
+    # kv tile dropped for the last q tile (window S - 128)
     for label, window, fault in (("local", W, W + FAULT_SHIFT),
                                  ("global", 0, LM_SEQ - FAULT_SHIFT)):
-        q = rnd(cfg_H, LM_SEQ, hd, torch.bfloat16)
-        k, v = (rnd(cfg_KH, LM_SEQ, hd, torch.bfloat16) for _ in range(2))
-        kw = dict(window=window, causal=True, softcap=cap)
-        got = A.swa_attention(q, k, v, **kw)
-        bad = A.swa_attention(q, k, v, **dict(kw, window=fault))
-        e = use = use_bad = 0.0
-        for g in range(cfg_KH):
-            want = A.swa_attention_plain(q[g * G:(g + 1) * G],
-                                         k[g:g + 1], v[g:g + 1], **kw)
-            part = got[g * G:(g + 1) * G]
-            e = max(e, max_err(part, want))
-            use = max(use, limit_use(part, want, *lim))
-            use_bad = max(use_bad,
-                          limit_use(bad[g * G:(g + 1) * G], want, *lim))
-            if not within(part, want, *lim):
+        qkv = (rnd(cfg_H, LM_SEQ, hd, torch.bfloat16),
+               *(rnd(cfg_KH, LM_SEQ, hd, torch.bfloat16) for _ in range(2)))
+        for dtype, tol_name in ((torch.bfloat16, "one bf16 ulp"),
+                                (torch.float32, f"atol {TOL_SWA_F32}")):
+            route, lim = A._route(dtype, hd), lims[dtype]
+            elem = torch.tensor([], dtype=dtype).element_size()
+            q, k, v = (t.to(dtype) for t in qkv)
+            kw = dict(window=window, causal=True, softcap=cap)
+            got = launch(route, q, k, v, **kw)
+            bad = launch(route, q, k, v, **dict(kw, window=fault))
+            e = use = use_bad = 0.0
+            for g in range(cfg_KH):
+                want = A.swa_attention_plain(q[g * G:(g + 1) * G],
+                                             k[g:g + 1], v[g:g + 1], **kw)
+                part = got[g * G:(g + 1) * G]
+                e = max(e, max_err(part, want))
+                use = max(use, limit_use(part, want, *lim))
+                use_bad = max(use_bad,
+                              limit_use(bad[g * G:(g + 1) * G], want, *lim))
+                if not within(part, want, *lim):
+                    raise AssertionError(
+                        f"phase11 swa_attention {route} {label} group {g} "
+                        f"kernel/plain mismatch (max_abs_err {e!r}, limit "
+                        f"use {use!r})")
+                del want, part
+            rms = float(got.float().pow(2).mean().sqrt())
+            del got, bad
+            log(f"[phase11] {route} {label} limit ({tol_name}: rtol "
+                f"{lim[0]}, atol {lim[1]}; output rms {rms:.4g}): kernel vs"
+                f" plain uses {use:.4f} of it, the planted fault (window "
+                f"{fault}) {use_bad:.4f}")
+            if not use_bad > 1.0:
                 raise AssertionError(
-                    f"phase11 swa_attention bf16 {label} group {g} "
-                    f"kernel/plain mismatch (max_abs_err {e!r}, limit "
-                    f"use {use!r})")
-            del want, part
-        rms = float(got.float().pow(2).mean().sqrt())
-        del got, bad
-        log(f"[phase11] bf16 {label} limit (rtol {lim[0]}, atol {lim[1]}; "
-            f"output rms {rms:.4g}): kernel vs plain uses {use:.4f} of it, "
-            f"the planted fault (window {fault}) {use_bad:.4f}")
-        if not use_bad > 1.0:
-            raise AssertionError(
-                f"phase11 bf16 {label}: the limit passes a planted fault "
-                f"(window {fault} for {window}; use {use_bad!r})")
-        err_bf16 = max(err_bf16, e)
-        ms = cuda_ms(lambda: A.swa_attention(q, k, v, **kw), iters=5,
-                     warmup=1)
-        plain_ms = cuda_ms(lambda: A.swa_attention_plain(q, k, v, **kw),
-                           iters=2, warmup=1)
-        torch.cuda.empty_cache()
-        fn, lib_label, lib_out = library_attention(q, k, v, window, cap)
-        lib_ms = cuda_ms(fn, iters=5, warmup=1) if fn else None
-        lib_err = None
-        if lib_out is not None:
-            lib_err = max_err(lib_out, A.swa_attention(q, k, v, **kw))
-        del fn, lib_out
-        torch.cuda.empty_cache()
-        bound_ms, bound_by, f32_ms = swa_bounds(LM_SEQ, window, cfg_H,
-                                                cfg_KH, hd, 2, rate=rate)
-        flops = 4 * hd * band_pairs(LM_SEQ, window) * cfg_H
-        rows[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, f32_core_bound_ms=f32_ms,
-                           library_ms=lib_ms, library=lib_label, err=e,
-                           limit_use=use, fault_limit_use=use_bad)
-        log(f"[phase11] swa_attention gemma2 {label} (H 16, KH 8, hd 256, "
-            f"S {LM_SEQ}, window {window}, softcap 50, bf16): kernel "
-            f"{ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s), "
-            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by}, bf16 tensor cores), f32-core bound "
-            f"{f32_ms:.4f} ms, {lib_label} "
-            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} ms"
-            f"{'' if lib_err is None else f' (max_abs_err vs kernel {lib_err:.3g})'}"
-            f", max_abs_err vs plain {e!r}")
-        del q, k, v
-        torch.cuda.empty_cache()
-    return rows, err_f32, err_bf16
+                    f"phase11 {route} {label}: the limit passes a planted "
+                    f"fault (window {fault} for {window}; use {use_bad!r})")
+            err[route] = max(err[route], e)
+            ms = cuda_ms(lambda: A.swa_attention(q, k, v, **kw), iters=5,
+                         warmup=1)
+            plain_ms = cuda_ms(lambda: A.swa_attention_plain(q, k, v, **kw),
+                               iters=2, warmup=1)
+            torch.cuda.empty_cache()
+            fn, lib_label, lib_out = library_attention(q, k, v, window, cap)
+            lib_ms = cuda_ms(fn, iters=5, warmup=1) if fn else None
+            lib_err = None
+            if lib_out is not None:
+                lib_err = max_err(lib_out, A.swa_attention(q, k, v, **kw))
+            del fn, lib_out
+            torch.cuda.empty_cache()
+            bound_ms, bound_by, split_ms = swa_bounds(
+                LM_SEQ, window, cfg_H, cfg_KH, hd, elem, rate=rate)
+            tflops = 4 * hd * band_pairs(LM_SEQ, window) * cfg_H \
+                / (ms * 1e-3) / 1e12
+            rows.setdefault(route, {})[label] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, split_bound_ms=split_ms, tflops=tflops,
+                library_ms=lib_ms, library=lib_label, err=e, limit_use=use,
+                fault_limit_use=use_bad)
+            split = "" if split_ms is None else \
+                f", split-design bound {split_ms:.4f} ms"
+            peak = "bf16 tensor cores" if elem == 2 else "f32 CUDA cores"
+            log(f"[phase11] swa_attention gemma2 {label} (H 16, KH 8, hd "
+                f"256, S {LM_SEQ}, window {window}, softcap 50, {dtype}, "
+                f"{route} route): kernel {ms:.4f} ms ({tflops:.2f} TFLOP/s),"
+                f" plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({bound_by}, {peak}){split}, {lib_label} "
+                f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} ms"
+                f"{'' if lib_err is None else f' (max_abs_err vs kernel {lib_err:.3g})'}"
+                f", max_abs_err vs plain {e!r}")
+            del q, k, v
+            torch.cuda.empty_cache()
+        del qkv
+    return rows, err
 
 
 def lm_model(cfg, gen):
@@ -1204,14 +1283,13 @@ def lm_model(cfg, gen):
 def forward_runs(cfg, model, batch, *, reps=2):
     """A warm-up forward, then ``reps`` timed ones; returns (the last
     logits, seconds per forward, swa launches per forward)."""
-    from repro_torch.kernels import swa_attention as A
     from repro_torch.models import transformer as T
     launches, secs, logits = [], [], None
     for i in range(reps + 1):
         logits = None
-        before = A.launch_counts["swa_attention"]
+        before = swa_launches()
         (logits, _), s = wall(lambda: T.forward(cfg, model, batch))
-        launches.append(A.launch_counts["swa_attention"] - before)
+        launches.append(swa_launches() - before)
         if i:
             secs.append(s)
     return logits, sum(secs) / len(secs), launches
@@ -1233,7 +1311,6 @@ def route_compare(cfg, model, batch):
     in the same way."""
     import dataclasses
     import torch
-    from repro_torch.kernels import swa_attention as A
     from repro_torch.models import attention as TA
     from repro_torch.models import transformer as T
     from repro_torch.train.objective import lm_loss
@@ -1252,14 +1329,14 @@ def route_compare(cfg, model, batch):
     specs = model.specs
     model.specs = T.layer_specs(dataclasses.replace(
         cfg, sliding_window=cfg.sliding_window + FAULT_SHIFT))
-    before = A.launch_counts["swa_attention"]
+    before = swa_launches()
     try:
         logits_f, _ = T.forward(cfg, model, batch)
         fault = route_gap(logits_f, float(lm_loss(cfg, model, batch)[0]),
                           logits_e, loss_e)
     finally:
         model.specs = specs
-    fault["launches"] = A.launch_counts["swa_attention"] - before
+    fault["launches"] = swa_launches() - before
     del logits_f, logits_e
     torch.cuda.empty_cache()
     return dict(s_kernel=s_k, s_einsum=s_e, launches_kernel=n_k,
@@ -1306,7 +1383,6 @@ def phase13(gen, model, cfg, label, cache_dtype):
     the local layers), run twice, and the teacher-forced forward over
     prompt + tokens on the kernel route (4608 = 36·128)."""
     import torch
-    from repro_torch.kernels import swa_attention as A
     from repro_torch.models import transformer as T
     from repro_torch.serve import GenerateConfig, generate, prefill
     B, P, N = 2, SERVE_PROMPT, SERVE_NEW
@@ -1327,10 +1403,10 @@ def phase13(gen, model, cfg, label, cache_dtype):
     (out2, lengths2, iters2), t_gen2 = runs[1]
     same = (torch.equal(out, out2) and torch.equal(lengths, lengths2)
             and int(iters) == int(iters2))
-    before = A.launch_counts["swa_attention"]
+    before = swa_launches()
     full = torch.cat([prompt, out.long()], dim=1)
     logits, _ = T.forward(cfg, model, {"tokens": full})
-    launched = A.launch_counts["swa_attention"] - before
+    launched = swa_launches() - before
     exp = logits[:, P - 1:-1].argmax(dim=-1)
     del logits
     torch.cuda.empty_cache()
@@ -1468,23 +1544,67 @@ def main(argv=None) -> int:
     rows10 = phase10(gen)
     launches = dict(S.launch_counts)
     log(f"[main] launches on the main path (phases 2-4, 9, 10): {launches}")
+    ms_by_T = {f"T={T} (phase 9, Helmholtz {SIZE}x{SIZE})": r["launches"]
+               for T, r in rows9.items()}
+    ms_by_T["T=3 (phase 10, 8 x 1080x1920 restoration)"] = \
+        rows10["cuda-multistep"]["launches"]
+    log(f"[main] multistep_sweep launches by T: {ms_by_T}")
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"the main path never launched {name}")
     ms_k, ms_p, bound_ms, bound_by, err5 = phase5(gen, SIZE, rate)
     rows5 = phase5_multistep(gen, SIZE, rate)
-    rows11, err11, err11_bf16 = phase11(gen, rate)
+    rows11, err11 = phase11(gen, rate)
     zero_counts()                                  # main path: 12-13
     r12, r13, r12f, r13f = lm_phases(gen)
     lm_launches = dict(A.launch_counts)
     planted = r12["fault"]["launches"] + r12f["fault"]["launches"]
-    log(f"[main] launches on the LM path (phases 12-13): {lm_launches}, "
-        f"{planted} of them by the planted-fault forwards")
-    if lm_launches["swa_attention"] == 0:
-        raise AssertionError("the LM path never launched swa_attention")
-    swa = {key: (rows11["local"][key] + rows11["global"][key]) / 2
-           for key in ("ms", "plain_ms", "bound_ms", "f32_core_bound_ms")}
-    libs = [rows11[x]["library_ms"] for x in ("local", "global")]
+    log(f"[main] swa_attention launches on the LM path (phases 12-13) by "
+        f"route: {lm_launches} (bf16: wgmma, f32: cuda_core), {planted} of "
+        f"them by the planted-fault forwards")
+    for route, count in lm_launches.items():
+        if count == 0:
+            raise AssertionError(f"the LM path never took the {route} "
+                                 "route of swa_attention")
+
+    def swa_entry(route, source, **extra):
+        """The kernels-line entry of one swa_attention route: its times
+        are the mean of gemma2's local and global layers (phase 11)."""
+        layers = rows11[route]
+        mean = {key: sum(r[key] for r in layers.values()) / len(layers)
+                for key in ("ms", "plain_ms", "bound_ms")}
+        libs = [r["library_ms"] for r in layers.values()]
+        return {"name": f"swa_attention[{route}]", "route": "cuda",
+                "source": source,
+                "replaces": "src/repro/kernels/swa_attention.py:32",
+                "launches": lm_launches[route],
+                "max_abs_err": err11[route], **mean,
+                "bound_by": layers["global"]["bound_by"],
+                "library_ms": None if None in libs else sum(libs) / 2,
+                "library": layers["global"]["library"], **extra,
+                "by_layer": layers,
+                "phases": {"launched": [12, 13],
+                           "held_against_plain": [11]}}
+    swa_wgmma = swa_entry(
+        "wgmma", "src/repro_torch/kernels/csrc/swa_wgmma.cu",
+        takes="bfloat16 at hd 64/128/256",
+        split_bound_ms=sum(r["split_bound_ms"]
+                           for r in rows11["wgmma"].values()) / 2,
+        lm={"forward_s": r12["s_kernel"], "einsum_forward_s":
+            r12["s_einsum"], "tokens_per_s": LM_SEQ / r12["s_kernel"],
+            "launches_per_forward": r12["launches_kernel"][0],
+            "loss_rel_bf16": r12["loss_rel"],
+            "max_dlogits_bf16": r12["max_dlogits"], "top1_bf16": r12["top1"],
+            "fault_bf16": r12["fault"], "prefill_s": r13["prefill_s"],
+            "decode_ms": r13["decode_ms"], "decode_step_ms": r13["step_ms"],
+            "decode_idle_share": r13["decode_idle"], "iters": r13["iters"],
+            "greedy_agree_bf16": r13["agree"]})
+    swa_core = swa_entry(
+        "cuda_core", "src/repro_torch/kernels/csrc/swa_attention.cu",
+        takes="float32 at every hd, bfloat16 at hd 16/32",
+        lm={"max_dlogits_f32": r12f["max_dlogits"],
+            "loss_rel_f32": r12f["loss_rel"], "fault_f32": r12f["fault"],
+            "greedy_agree_f32": r13f["agree"]})
     log(json.dumps({"kernels": [{
         "name": "stencil_sweep",
         "route": "cuda",
@@ -1514,6 +1634,7 @@ def main(argv=None) -> int:
         "bound_by": rows5[4]["bound_by"],
         "library_ms": None,
         "T": 4,
+        "launches_by_T": ms_by_T,
         "by_T": {T: {"ms_launch": r["ms"], "ms_sweep": r["ms_sweep"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "loop_ms_sweep": rows9[T]["ms_sweep"]}
@@ -1521,39 +1642,7 @@ def main(argv=None) -> int:
         "bf16_max_abs_err": err8_bf16,
         "phases": {"launched": [9, 10],
                    "held_against_plain": [5, 8, 9, 10]},
-    }, {
-        "name": "swa_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/swa_attention.cu",
-        "replaces": "src/repro/kernels/swa_attention.py:32",
-        "launches": lm_launches["swa_attention"],
-        "max_abs_err": max(err11, err11_bf16),
-        "ms": swa["ms"],
-        "plain_ms": swa["plain_ms"],
-        "bound_ms": swa["bound_ms"],
-        "bound_by": rows11["global"]["bound_by"],
-        "library_ms": None if None in libs else sum(libs) / 2,
-        "library": rows11["global"]["library"],
-        "f32_core_bound_ms": swa["f32_core_bound_ms"],
-        "f32_max_abs_err": err11,
-        "bf16_max_abs_err": err11_bf16,
-        "by_layer": rows11,
-        "lm": {"forward_s": r12["s_kernel"], "einsum_forward_s":
-               r12["s_einsum"], "tokens_per_s": LM_SEQ / r12["s_kernel"],
-               "launches_per_forward": r12["launches_kernel"][0],
-               "loss_rel_bf16": r12["loss_rel"],
-               "max_dlogits_bf16": r12["max_dlogits"],
-               "top1_bf16": r12["top1"],
-               "max_dlogits_f32": r12f["max_dlogits"],
-               "loss_rel_f32": r12f["loss_rel"],
-               "fault_bf16": r12["fault"], "fault_f32": r12f["fault"],
-               "prefill_s": r13["prefill_s"], "decode_ms": r13["decode_ms"],
-               "decode_step_ms": r13["step_ms"],
-               "decode_idle_share": r13["decode_idle"],
-               "iters": r13["iters"], "greedy_agree_bf16": r13["agree"],
-               "greedy_agree_f32": r13f["agree"]},
-        "phases": {"launched": [12, 13], "held_against_plain": [11]},
-    }]}))
+    }, swa_wgmma, swa_core]}))
     phase6(gen, SIZE)
     phase7(gen, SIZE, rate)
     log(card_line())

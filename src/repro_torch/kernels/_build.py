@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-SOURCES = ("stencil2d.cu", "multistep.cu", "swa_attention.cu")
+SOURCES = ("stencil2d.cu", "multistep.cu", "swa_attention.cu", "swa_wgmma.cu")
 HEADERS = ("elementals.cuh", "fold.cuh", "dispatch.cuh")
 # --fmad=false: no multiply-add contraction, so the functors round exactly
 # like the plain PyTorch bodies; no --use_fast_math (IEEE div and sqrtf).
@@ -137,6 +137,11 @@ def library() -> ctypes.CDLL:
         i, i, i, i, i,               # bh, bkh, S, window, causal
         ctypes.c_float, ctypes.c_float, vp]   # scale, softcap, stream
     lib.swa_attention_fwd.restype = i
+    lib.swa_attention_wgmma.argtypes = [
+        i, vp, vp, vp, vp,           # head_dim, q, k, v, out
+        i, i, i, i, i,               # bh, bkh, S, window, causal
+        ctypes.c_float, ctypes.c_float, vp]   # scale, softcap, stream
+    lib.swa_attention_wgmma.restype = i
     lib.stencil_error_string.argtypes = [i]
     lib.stencil_error_string.restype = ctypes.c_char_p
     return lib

@@ -26,6 +26,7 @@ constexpr int kThreadsX = 32, kThreadsY = 8, kThreads = kThreadsX * kThreadsY;
 constexpr int kErrUnknownFunctor = 10001;
 constexpr int kErrBadArgs = 10002;
 constexpr int kErrSharedMemory = 10003;
+constexpr int kErrTensorMap = 10004;
 
 __device__ __forceinline__ float monoid_identity(int monoid) {
   switch (monoid) {

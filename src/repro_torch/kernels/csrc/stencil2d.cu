@@ -153,6 +153,7 @@ const char* stencil_error_string(int code) {
   if (code == kErrUnknownFunctor) return "no kernel instantiation for this functor and radius";
   if (code == kErrBadArgs) return "invalid launch arguments";
   if (code == kErrSharedMemory) return "the window does not fit the block's shared memory";
+  if (code == kErrTensorMap) return "no TMA tensor map for these operands";
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -1,14 +1,14 @@
-// Flash sliding-window attention with native GQA, for sm_90a.
+// Flash sliding-window attention with native GQA on CUDA cores, for sm_90a.
 //
-// Replaces the Pallas TPU kernel repro/kernels/swa_attention.py::_swa_kernel:
+// Replaces the Pallas TPU kernel repro/kernels/swa_attention.py::_swa_kernel
+// for float32 at every head_dim and bfloat16 at head_dim 16 and 32 (bf16 at
+// 64, 128 and 256 runs on the tensor cores: swa_wgmma.cu):
 // softmax(softcap(q k^T * scale) + band mask) v for one (q row block, query
 // head) per CTA, with the running max m, sum l and output accumulator in
 // float32 (online softmax over kv tiles), kv head = query head / G (GQA).
 //
-// What bounds it on an H100: operations.  At the main path's shape (S 8192,
-// hd 256, 16 heads) a global layer is 550 GFLOP against ~0.2 GB of q, k, v
-// and o; the f32 CUDA-core peak (67 TFLOP/s) is what this kernel can reach
-// at most, the bf16 tensor cores (989 TFLOP/s) what a later one can.
+// What bounds it on an H100: operations, at the f32 CUDA-core peak (67
+// TFLOP/s); a TF32 tensor-core product would miss the float32 gate.
 // Design, simple first:
 //   * one CTA of 256 threads per (64-row q block, b*H + h); the grid's x
 //     runs over q blocks from the last (most kv tiles under the causal
@@ -29,7 +29,6 @@
 //     alpha = exp(-2^30 - m) = 0), l clamped at 1e-30 at the end;
 //   * bf16 inputs widen to float on load; the output rounds once to the
 //     input type.
-// Tensor cores (mma.sync / wgmma on bf16) and TMA loads are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -241,15 +240,22 @@ int launch(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-template <class T>
-int by_head_dim(int hd, const Args& a) {
+int f32_by_head_dim(int hd, const Args& a) {
   switch (hd) {
-    case 16: return launch<T, 16>(a);
-    case 32: return launch<T, 32>(a);
-    case 64: return launch<T, 64>(a);
-    case 128: return launch<T, 128>(a);
-    case 256: return launch<T, 256>(a);
+    case 16: return launch<float, 16>(a);
+    case 32: return launch<float, 32>(a);
+    case 64: return launch<float, 64>(a);
+    case 128: return launch<float, 128>(a);
+    case 256: return launch<float, 256>(a);
     default: return fold::kErrBadArgs;
+  }
+}
+
+int bf16_by_head_dim(int hd, const Args& a) {
+  switch (hd) {
+    case 16: return launch<__nv_bfloat16, 16>(a);
+    case 32: return launch<__nv_bfloat16, 32>(a);
+    default: return fold::kErrBadArgs;  // 64, 128, 256: swa_attention_wgmma
   }
 }
 
@@ -259,8 +265,9 @@ extern "C" {
 
 // Flash attention over bh = B*H query rows of (S, hd) and bkh = B*KH kv rows
 // (query row b reads kv row b / (bh / bkh)), float32 (dtype 0) or bfloat16
-// (dtype 1), all contiguous; o has q's shape and type.  window 0 means no
-// band, causal 0 no causal mask, softcap 0 no capping.
+// (dtype 1, head_dim 16 and 32 only), all contiguous; o has q's shape and
+// type.  window 0 means no band, causal 0 no causal mask, softcap 0 no
+// capping.
 int swa_attention_fwd(int dtype, int hd, const void* q, const void* k, const void* v, void* o,
                       int bh, int bkh, int S, int window, int causal, float scale,
                       float softcap, void* stream) {
@@ -269,8 +276,8 @@ int swa_attention_fwd(int dtype, int hd, const void* q, const void* k, const voi
     return fold::kErrBadArgs;
   const Args a{q, k, v, o, bh, S, bh / bkh, window, causal != 0, scale, softcap,
                (cudaStream_t)stream};
-  if (dtype == 0) return by_head_dim<float>(hd, a);
-  if (dtype == 1) return by_head_dim<__nv_bfloat16>(hd, a);
+  if (dtype == 0) return f32_by_head_dim(hd, a);
+  if (dtype == 1) return bf16_by_head_dim(hd, a);
   return fold::kErrBadArgs;
 }
 

@@ -1,13 +1,21 @@
 """Sliding-window flash attention (sequence stencil) with native GQA.
 
 PyTorch/CUDA twin of :mod:`repro.kernels.swa_attention`.  The TPU kernel
-``_swa_kernel`` becomes the hand-written CUDA kernel in
-``csrc/swa_attention.cu`` (built at first use by :mod:`._build`): one CTA
-per (64-row q block, query head), an online softmax over the kv tiles
-inside the band only, m/l/acc in float32, kv head = query head // G.
+``_swa_kernel`` becomes two hand-written CUDA kernels (built at first use
+by :mod:`._build`), both an online softmax over the kv tiles inside the
+band only, m/l/acc in float32, kv head = query head // G; the route is
+chosen by dtype and head_dim alone (:func:`_route`):
+
+* ``"wgmma"`` — ``csrc/swa_wgmma.cu``, bfloat16 at head_dim 64, 128 and
+  256 (every ported config's): Hopper tensor cores (wgmma) fed by TMA, one
+  CTA per (128-row q block, query head), P·V with P split into two bf16
+  parts so the output stays within one bf16 ulp of the float32 version;
+* ``"cuda_core"`` — ``csrc/swa_attention.cu``, float32 at every head_dim
+  and bfloat16 at 16 and 32: float FMAs, one CTA per (64-row q block,
+  query head).
 
 * :func:`swa_attention` — the wrapper: on CUDA tensors it launches the
-  kernel or raises; on CPU tensors it runs the plain version.
+  route's kernel or raises; on CPU tensors it runs the plain version.
 * :func:`swa_attention_plain` — the same function in torch ops: dense
   masked softmax in float32 with the kernel's scaling order (q scaled
   before the dot), softcap, ``NEG_INF`` and GQA by index.  For the tests
@@ -25,11 +33,21 @@ import torch
 
 NEG_INF = -2.0 ** 30
 HEAD_DIMS = (16, 32, 64, 128, 256)
+TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 128            # the reference's bq = bk: S must tile by min(128, S)
 
-# launches of the kernel (the wrapper adds one per launch, nowhere else)
-launch_counts = {"swa_attention": 0}
+# launches by route (the wrapper adds one per launch, nowhere else)
+launch_counts = {"wgmma": 0, "cuda_core": 0}
+
+
+def _route(dtype, hd: int) -> str:
+    """The kernel a CUDA call launches: ``"wgmma"`` for bfloat16 at a head
+    dim in :data:`TENSOR_CORE_HEAD_DIMS`, else ``"cuda_core"`` (a TF32
+    product would miss the float32 gate)."""
+    if dtype == torch.bfloat16 and hd in TENSOR_CORE_HEAD_DIMS:
+        return "wgmma"
+    return "cuda_core"
 
 
 def _check(q, k, v, window: int):
@@ -91,8 +109,9 @@ def swa_attention(q, k, v, *, window: int = 0, causal: bool = True,
 
     q: (B·H, S, hd); k, v: (B·KH, S, hd), float32 or bfloat16, with hd in
     :data:`HEAD_DIMS` and S a multiple of min(128, S).  On a CUDA tensor
-    this launches ``csrc/swa_attention.cu`` (contiguous inputs) or raises;
-    on a CPU tensor it runs :func:`swa_attention_plain`."""
+    this launches the kernel of :func:`_route` (contiguous inputs; 16-byte
+    aligned on the wgmma route, whose TMA loads need it) or raises; on a
+    CPU tensor it runs :func:`swa_attention_plain`."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return swa_attention_plain(q, k, v, window=window, causal=causal,
@@ -104,18 +123,24 @@ def swa_attention(q, k, v, *, window: int = 0, causal: bool = True,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the kernel takes contiguous q, k and v")
     BH, S, hd = q.shape
+    route = _route(q.dtype, hd)
+    if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the wgmma route takes 16-byte aligned q, k and v")
     out = torch.empty_like(q)
 
     from . import _build
     lib = _build.library()
-    rc = lib.swa_attention_fwd(
-        DTYPE_IDS[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), BH, k.shape[0], S, int(window), int(bool(causal)),
-        ctypes.c_float(1.0 / math.sqrt(hd)), ctypes.c_float(softcap),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH,
+            k.shape[0], S, int(window), int(bool(causal)),
+            ctypes.c_float(1.0 / math.sqrt(hd)), ctypes.c_float(softcap),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if route == "wgmma":
+        rc = lib.swa_attention_wgmma(hd, *args)
+    else:
+        rc = lib.swa_attention_fwd(DTYPE_IDS[q.dtype], hd, *args)
     if rc != 0:
         raise RuntimeError(
-            f"swa_attention launch failed ({rc}): "
+            f"swa_attention launch failed ({route}, {rc}): "
             f"{lib.stencil_error_string(rc).decode()}")
-    launch_counts["swa_attention"] += 1
+    launch_counts[route] += 1
     return out

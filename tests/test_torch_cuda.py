@@ -9,9 +9,11 @@ package, so the tests run on a machine with a card and PyTorch alone:
 ``chip_smoke.py`` runs the full-size versions of these checks.  Tolerances:
 float32 grids within 1e-5 (measured bit-identical), float sums rel 1e-5,
 bf16 5e-2 (rtol and atol).  Attention: the kernel against its plain
-version within atol 2e-5 in float32 and atol = rtol = 3e-2 in bf16 (the
-reference's own); the flash route against the einsum route within atol
-1e-4 on float32 logits (online against dense softmax, TF32 off).
+version within atol 2e-5 in float32 and within one bf16 ulp in bf16
+(rtol 1e-2, atol 1e-4: both round nearly the same float32 value once,
+as in ``chip_smoke.py`` phase 11); the flash route against the einsum
+route within atol 1e-4 on float32 logits (online against dense softmax,
+TF32 off).
 """
 import numpy as np
 import pytest
@@ -194,6 +196,10 @@ def test_cuda_farm_run_matches_solo_runs(cuda, backend, unroll, key):
 # sliding-window attention and the LM forward
 # ---------------------------------------------------------------------------
 
+def swa_launches():
+    return sum(TS.launch_counts.values())
+
+
 @pytest.fixture
 def cuda_f32(cuda, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
@@ -214,7 +220,18 @@ SWA_CASES = [
     (2, 1, 256, 32, 0, True, 0.0),
     (2, 1, 384, 256, 100, True, 50.0),
     (1, 1, 64, 64, 0, True, 0.0),             # S < 128 tiles by S
+    # the wgmma route's edges (bf16 at hd 64/128/256)
+    (2, 1, 64, 256, 0, True, 50.0),           # S = 64: half a 128-row q block
+    (4, 2, 384, 128, 200, True, 0.0),         # q blocks straddle the band's edge
+    (2, 2, 384, 64, 300, True, 50.0),         # windows 200, 300: not tile multiples
+    (2, 1, 512, 256, 200, True, 50.0),
+    (2, 1, 256, 256, 0, False, 50.0),         # causal = False
+    (2, 2, 384, 128, 200, False, 0.0),        # band without the causal mask
+    (8, 2, 256, 64, 0, True, 0.0),            # G = 4
+    (8, 1, 256, 128, 128, True, 50.0),        # G = 8
+    (2, 2, 256, 128, 0, True, 50.0),          # hd 128 with softcap
 ]
+SWA_BF16_LIMIT = dict(rtol=1e-2, atol=1e-4)   # one bf16 ulp (phase 11's)
 
 
 @pytest.mark.cuda
@@ -225,17 +242,32 @@ def test_cuda_swa_attention_matches_plain(cuda_f32, case, dtype):
     dt = getattr(torch, dtype)
     q, k, v = (torch.as_tensor(field(40 + i, (rows, S, hd)), device=cuda_f32)
                .to(dt) for i, rows in enumerate((bh, bkh, bkh)))
-    before = TS.launch_counts["swa_attention"]
+    before = swa_launches()
     got = TS.swa_attention(q, k, v, window=window, causal=causal,
                            softcap=cap)
     torch.cuda.synchronize()
-    assert TS.launch_counts["swa_attention"] == before + 1
+    assert swa_launches() == before + 1
     want = TS.swa_attention_plain(q, k, v, window=window, causal=causal,
                                   softcap=cap)
     assert got.dtype == dt and got.shape == q.shape
-    tol = dict(atol=2e-5, rtol=0) if dt == torch.float32 else \
-        dict(atol=3e-2, rtol=3e-2)
+    tol = dict(atol=2e-5, rtol=0) if dt == torch.float32 else SWA_BF16_LIMIT
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,route", [
+    ("bfloat16", 64, "wgmma"), ("bfloat16", 128, "wgmma"),
+    ("bfloat16", 256, "wgmma"), ("bfloat16", 32, "cuda_core"),
+    ("float32", 64, "cuda_core"), ("float32", 256, "cuda_core")])
+def test_cuda_swa_attention_takes_its_route(cuda_f32, dtype, hd, route):
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.as_tensor(field(60 + i, (2, 128, hd)), device=cuda_f32)
+               .to(dt) for i in range(3))
+    before = dict(TS.launch_counts)
+    TS.swa_attention(q, k, v, window=64, softcap=50.0)
+    torch.cuda.synchronize()
+    assert {r: TS.launch_counts[r] - before[r] for r in before} == \
+        {r: int(r == route) for r in before}
 
 
 @pytest.mark.cuda
@@ -257,15 +289,15 @@ def test_cuda_forward_routes_agree_and_count_launches(cuda_f32, batch):
     tokens = torch.as_tensor(
         np.random.default_rng(0).integers(0, cfg.vocab_size, (batch, 256)),
         device=cuda_f32)
-    before = TS.launch_counts["swa_attention"]
+    before = swa_launches()
     flash, _ = TT.forward(cfg, model, {"tokens": tokens})
-    assert TS.launch_counts["swa_attention"] - before == cfg.num_layers
+    assert swa_launches() - before == cfg.num_layers
     TA.set_flash_swa(False)
     try:
         einsum, _ = TT.forward(cfg, model, {"tokens": tokens})
     finally:
         TA.set_flash_swa(None)
-    assert TS.launch_counts["swa_attention"] - before == cfg.num_layers
+    assert swa_launches() - before == cfg.num_layers
     assert bool(torch.isfinite(flash).all())
     torch.testing.assert_close(flash, einsum, atol=1e-4, rtol=0)
 
@@ -283,9 +315,9 @@ def test_cuda_greedy_equals_teacher_forced_argmax(cuda_f32):
                                    cache_dtype=torch.float32)
     full = torch.cat([torch.as_tensor(prompt, device=cuda_f32),
                       out.long()], dim=1)
-    before = TS.launch_counts["swa_attention"]
+    before = swa_launches()
     logits, _ = TT.forward(cfg, model, {"tokens": full})   # 128: flash
-    assert TS.launch_counts["swa_attention"] - before == cfg.num_layers
+    assert swa_launches() - before == cfg.num_layers
     exp = logits[:, 119:-1].argmax(dim=-1)
     for b in range(2):
         L = int(lengths[b])

@@ -6,7 +6,9 @@ its oracle.  Tolerances: atol 2e-5 in float32 (the reference test's own;
 dense softmax against an online softmax over 128-key blocks), atol = rtol
 = 3e-2 in bf16 (the reference's bf16 tolerance).  The kernel itself is
 held against the plain version on the card (tests/test_torch_cuda.py,
-chip_smoke.py phase 11).
+chip_smoke.py phase 11); here, its route choice and the numerics of its
+bf16 P·V (P split into two bf16 parts) are held to that card limit, one
+bf16 ulp (rtol 1e-2, atol 1e-4).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -111,3 +113,44 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="no kernel"):
         TS.swa_attention(q.to("meta"), k.to("meta"), v.to("meta"))
     assert TS.launch_counts == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", TS.HEAD_DIMS)
+def test_route_is_chosen_by_dtype_and_head_dim(dtype, hd):
+    want = "wgmma" if dtype == torch.bfloat16 and hd >= 64 else "cuda_core"
+    assert TS._route(dtype, hd) == want
+
+
+def kernel_pv_emulation(q, k, v, *, window, softcap, split):
+    """The wgmma route's arithmetic in torch, dense: float32 scores (scale
+    after the bf16 dot), softcap, mask, P = exp(s - max) in float32, P·V
+    with P rounded to bf16 as P_hi + P_lo (``split``) or P_hi alone, one
+    division by the float32 row sum, one final bf16 rounding."""
+    BH, S, hd = q.shape
+    rows = torch.arange(BH) // (BH // k.shape[0])
+    s = (q.float() @ k.float()[rows].transpose(-1, -2)) \
+        * float(1.0 / np.sqrt(hd))
+    s = softcap * torch.tanh(s / softcap)
+    qp, kp = torch.arange(S)[:, None], torch.arange(S)[None, :]
+    ok = (kp <= qp) & (kp > qp - window)
+    s = torch.where(ok[None], s, torch.full((), TS.NEG_INF))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p_hi = p.to(torch.bfloat16).float()
+    p_in = p_hi + (p - p_hi).to(torch.bfloat16).float() if split else p_hi
+    out = (p_in @ v.float()[rows]) / p.sum(dim=-1, keepdim=True)
+    return out.to(torch.bfloat16)
+
+
+def test_p_split_keeps_the_bf16_route_within_one_ulp():
+    # gemma2-like head: hd 256, softcap 50, a window that is no tile
+    # multiple; the split P·V passes the card limit, P in bf16 alone fails it
+    q, k, v = (torch.as_tensor(a).to(torch.bfloat16)
+               for a in qkv(6, 2, 1, 1024, 256))
+    kw = dict(window=300, softcap=50.0)
+    want = TS.swa_attention_plain(q, k, v, **kw).float()
+    limit = 1e-4 + 1e-2 * want.abs()
+    split = kernel_pv_emulation(q, k, v, split=True, **kw).float()
+    hi_only = kernel_pv_emulation(q, k, v, split=False, **kw).float()
+    assert bool(((split - want).abs() <= limit).all())
+    assert float(((hi_only - want).abs() / limit).max()) > 1.0
