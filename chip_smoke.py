@@ -2,15 +2,19 @@
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
-(the single-step stencil+reduce sweep, the temporal-blocking multistep
-sweep and the sliding-window flash attention: bf16 at hd 64/128/256 on the
-tensor cores, the rest on CUDA cores), holds each against its plain
+(the stencil+reduce kernel of ``window.cuh`` behind its two entry points,
+the single-step sweep and the temporal-blocking multistep sweep, and the
+sliding-window flash attention: bf16 at hd 64/128/256 on the tensor
+cores, the rest on CUDA cores), holds each against its plain
 PyTorch version, and drives the port's main paths — the persistent-frame
 Loop-of-stencil-reduce on "cuda" and "cuda-multistep", the lane farm
 ``farm_run``, the paper's §4 apps, and the gemma2-9b scoring forward and
 greedy serving — on one CUDA card at full size:
 
-  0. the card (nvidia-smi), torch/CUDA versions, kernel build time;
+  0. the card (nvidia-smi), torch/CUDA versions, kernel build time,
+     registers and spills of the stencil kernel's Helmholtz, Sobel and
+     restore instantiations (a spill there fails the phase) and of every
+     instantiation that spills;
   1. stencil_sweep vs plain on frames: every registered functor at a
      non-tile-multiple 1000x1300 grid, monoids sum/max/min/any/all, measures
      none/abs_delta, all four boundaries, and a NaN-boundary max case;
@@ -28,7 +32,11 @@ greedy serving — on one CUDA card at full size:
      and the converging solve against "torch" at the same unroll;
  10. farm_run of 8 full-HD restoration lanes with different noise levels,
      on "cuda" and "cuda-multistep" (T=3), against solo runs and "torch";
-  5. per-kernel timings at the main path's shape;
+     ms a frame of wall and of the device's busy time (profiler);
+  5. per-kernel timings at the main path's shapes, each with its bound and
+     the stencil kernel's launch choices (CTA tile, window slots, CTAs an
+     SM, shared memory, registers); at 1080x1920 also the profiler's
+     device time (the event timing there reads the host's issue rate);
  11. swa_attention vs plain on both routes (bf16 at hd 64/128/256 on the
      wgmma kernel, the rest on the CUDA-core one): the reference test's
      shapes (GQA, softcap, every head_dim) in f32 within 2e-5 and their
@@ -55,16 +63,19 @@ greedy serving — on one CUDA card at full size:
   6. torch.profiler breakdown of the kernel loops (three runs on "cuda",
      one on "cuda-multistep" at T=4): device time by kernel and the
      device's idle share;
-  7. the single-step kernel's time for a range of CTA tile shapes.
+  7. the stencil kernel's time for a range of its own CTA tiles and
+     window slots (Helmholtz at T = 1, 4, 8; AMF k=3 and restore at
+     1080x1920), the wrapper's choice marked.
 
 Every phase runs, at the sizes above, in the order listed.  Phases 2-4, 9
 and 10 are the stencil main path: the kernel launch counts are zeroed just
-before phase 2 and read just after phase 10 (the multistep launches also
-by T).  Phases 12-13 are the LM main path: the counts (the attention's
-by route) are zeroed just before phase 12 and read just after phase 13;
-the bf16 layers must take the wgmma route and the f32 ones the CUDA-core
-route, and each route is its own entry of the ``kernels`` line.  Every phase's failure propagates:
-the exit code is non-zero and the final ok line is not printed.  Without a
+before phase 2 and read just after phase 10 (the single-step launches also
+by shape, the multistep launches by T).  Phases 12-13 are the LM main
+path: the counts (the attention's by route) are zeroed just before phase
+12 and read just after phase 13; the bf16 layers must take the wgmma
+route and the f32 ones the CUDA-core route, and each route is its own
+entry of the ``kernels`` line.  Every phase's failure propagates: the
+exit code is non-zero and the final ok line is not printed.  Without a
 CUDA card, or without the repository around it, the script exits non-zero
 before printing any result.
 
@@ -245,7 +256,7 @@ def short_name(mangled: str) -> str:
         hd = mangled.split("swa_kernel", 1)[1].split("Li", 1)[1] \
             .split("E", 1)[0]
         return f"swa_kernel<{storage}, hd={hd}>"
-    kernel = "multistep" if "multistep_kernel" in mangled else "stencil_sweep"
+    kernel = "window_kernel"
     functor = next((w for w in ("HelmholtzJacobi", "AmfMask", "AmfRepl",
                                 "Median3", "Restore", "Jacobi", "Heat",
                                 "Sobel", "Gol", "Conv") if w in mangled), "?")
@@ -271,11 +282,19 @@ def phase0():
     log(f"[phase0] kernel build {build_s:.1f} s "
         f"({_build.build_dir()}), {len(entries)} instantiations, "
         f"registers max {max(regs) if regs else 'n/a'}")
+    main_path = ("HelmholtzJacobi", "Sobel", "Restore")
+    spilled = []
     for name, r, spill in entries:
-        if "HelmholtzJacobi" in name and "nv_bfloat16" not in name:
-            log(f"[phase0]   {short_name(name)}: {r} registers")
         if spill:
             log(f"[phase0]   {short_name(name)}: {r} registers, {spill}")
+        elif "window_kernel" in name and any(f in name for f in main_path):
+            log(f"[phase0]   {short_name(name)}: {r} registers, no spills")
+        if spill and "window_kernel" in name \
+                and any(f in name for f in main_path):
+            spilled.append(short_name(name))
+    if spilled:
+        raise AssertionError(f"phase0: main-path stencil instantiations "
+                             f"spill: {spilled}")
     return card
 
 
@@ -480,17 +499,46 @@ def phase4(gen):
     return err
 
 
+def launch_note(info) -> str:
+    """The last stencil launch's choices, as phases 5 and 7 print them."""
+    sms = info["grid"] // max(1, info["ctas_per_sm"])
+    return (f"tile {info['tm']}x{info['tn']} ring {info['ring']}, "
+            f"{info['ctas_per_sm']} CTAs/SM x {sms} SMs, "
+            f"{info['smem_bytes']} B smem/CTA, {info['registers']} "
+            f"registers, {info['tiles']} tiles")
+
+
+def device_us(fn, iters=20) -> float:
+    """Device time of one call of ``fn`` (µs) from torch.profiler's kernel
+    records: at 1080x1920 a launch is shorter than the host's cost of
+    issuing it, so back-to-back event timing reads the host."""
+    for _ in range(3):
+        fn()
+    _, busy, rows = profiled(lambda: [fn() for _ in range(iters)])
+    return busy * 1e6 / iters
+
+
+# AMF k=3 a cell: every level sorts its (2k+1)^2 window; the least work a
+# comparison sort needs is n*log2(n) comparisons (n = 9, 25, 49), one
+# operation each at the f32 CUDA-core rate
+AMF3_OPS = sum(n * math.log2(n) for n in (9, 25, 49))
+
+
 def phase5(gen, size, rate):
-    """Device time of one sweep at the main path's shape: the kernel, its
-    plain version, and the bound.  Also the per-app sweeps."""
+    """Device time of one sweep at the main path's shapes: the kernel, its
+    plain version, the bound and the kernel's launch choices (tile, CTAs
+    an SM, shared memory, registers).  Helmholtz at ``size`` and the
+    restoration sweeps at 1080x1920 (there also the profiler's device
+    time)."""
     import torch
     from repro_torch.core.frames import frame_env, frame_spec, make_frame
     from repro_torch.kernels import ref as R
-    from repro_torch.kernels.stencil2d import (alloc_scratch,
+    from repro_torch.kernels.stencil2d import (alloc_scratch, last_launch,
                                                stencil2d_fused_framed,
                                                stencil2d_fused_framed_ref)
 
-    def sweep_times(f, m, n, boundary, combine, measure, n_env, iters):
+    def sweep_times(f, m, n, boundary, combine, measure, n_env, iters,
+                    profile=False):
         a = torch.rand((m, n), generator=gen, device="cuda")
         spec = frame_spec(m, n, k=f.k)
         frame = make_frame(a, spec, boundary)
@@ -505,60 +553,77 @@ def phase5(gen, size, rate):
         want, red_p = stencil2d_fused_framed_ref(frame, f, spec, **kw)
         p = spec.pad
         err = max_err(got[p:p + m, p:p + n], want[p:p + m, p:p + n])
+        exact = bool(torch.equal(got[p:p + m, p:p + n],
+                                 want[p:p + m, p:p + n]))
         rel = TOL_RED if combine == "sum" else 0.0
-        if not (err <= TOL_GRID and same_scalar(red_k, red_p, rel)):
+        if not (exact and same_scalar(red_k, red_p, rel)):
             raise AssertionError(f"phase5 {f.functor} kernel/plain "
                                  f"mismatch: {err!r} {red_k!r} {red_p!r}")
         del got, want
-        ms_k = cuda_ms(lambda: stencil2d_fused_framed(
-            frame, f, spec, scratch=scratch, out=out, **kw), iters=iters)
+
+        def run():
+            return stencil2d_fused_framed(frame, f, spec, scratch=scratch,
+                                          out=out, **kw)
+        ms_k = cuda_ms(run, iters=iters)
+        info = last_launch()
+        dev = device_us(run) if profile else None
         ms_p = cuda_ms(lambda: stencil2d_fused_framed_ref(
             frame, f, spec, out=out, **kw), iters=max(iters // 4, 2),
             warmup=1)
         del frame, out, env
         torch.cuda.empty_cache()
-        return ms_k, ms_p, err
+        return dict(ms=ms_k, plain_ms=ms_p, err=err, info=info,
+                    device_us=dev)
 
-    ms_k, ms_p, err = sweep_times(R.helmholtz_jacobi_taps(0.5, 1 / 512),
-                                  size, size, "zero", "max", R.abs_delta, 1,
-                                  50)
-    cells = size * size
-    nbytes = 3 * cells * 4          # frame read, env read, frame written
-    flops = 10 * cells              # 4 add, mul, add, div; sub, abs, max
-    bound_ms = max(nbytes / rate, flops / FP32_RATE) * 1e3
-    bound_by = "bytes" if nbytes / rate >= flops / FP32_RATE \
-        else "operations"
+    def bound(cells, n_fields, ops):
+        """(ms, by): each field read once and the frame written once, or
+        the operations at the f32 rate, whichever is longer."""
+        t_bytes = (n_fields + 1) * cells * 4 / rate
+        t_ops = ops * cells / FP32_RATE
+        return max(t_bytes, t_ops) * 1e3, \
+            "bytes" if t_bytes >= t_ops else "operations"
+
+    rows = {}
+    r = sweep_times(R.helmholtz_jacobi_taps(0.5, 1 / 512), size, size,
+                    "zero", "max", R.abs_delta, 1, 50)
+    r["bound_ms"], r["bound_by"] = bound(size * size, 2, 10)  # 10 flops
+    rows["helmholtz"] = r
     log(f"[phase5] stencil_sweep helmholtz {size}x{size}: kernel "
-        f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}), {nbytes / (ms_k * 1e-3) / 1e9:.0f} GB/s, "
-        f"max_abs_err vs plain {err!r}")
-    for label, f, b, comb, meas, n_env in [
-            ("sobel", R.sobel_taps(), "reflect", "max", None, 0),
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}; 3 x {size}^2 x 4 B), "
+        f"{3 * size * size * 4 / (r['ms'] * 1e-3) / 1e9:.0f} GB/s, "
+        f"max_abs_err vs plain {r['err']!r}; {launch_note(r['info'])}")
+    for label, f, b, comb, meas, n_env, ops in [
+            ("sobel", R.sobel_taps(), "reflect", "max", None, 0, 21),
             ("amf_mask k=3", R.amf_detect_taps(3)[0], "reflect", "sum",
-             None, 0),
+             None, 0, AMF3_OPS),
             ("amf_repl k=3", R.amf_detect_taps(3)[1], "reflect", "sum",
-             None, 0),
+             None, 0, AMF3_OPS),
             ("restore", R.restore_taps(2.0), "reflect", "sum", R.abs_delta,
-             2)]:
-        k_ms, p_ms, e = sweep_times(f, 1080, 1920, b, comb, meas, n_env,
-                                    20)
-        err = max(err, e)
+             2, 20)]:
+        r = sweep_times(f, 1080, 1920, b, comb, meas, n_env, 20,
+                        profile=True)
+        r["bound_ms"], r["bound_by"] = bound(1080 * 1920, 1 + n_env, ops)
+        rows[label] = r
         log(f"[phase5] stencil_sweep {label} 1080x1920: kernel "
-            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, max_abs_err vs plain "
-            f"{e!r}")
-    return ms_k, ms_p, bound_ms, bound_by, err
+            f"{r['ms']:.4f} ms (device {r['device_us']:.2f} us), plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}: {1 + n_env} fields read + 1 written, or "
+            f"{ops:.1f} operations a cell), max_abs_err vs plain "
+            f"{r['err']!r}; {launch_note(r['info'])}")
+    return rows
 
 
 def phase5_multistep(gen, size, rate):
     """Device time of one multistep launch (T fused sweeps) at the main
-    path's shape for T in {2, 4, 8}: the kernel, its plain version and the
-    bound."""
+    path's shape for T in {2, 4, 8}: the kernel, its plain version, the
+    bound and the kernel's launch choices."""
     import torch
     from repro_torch.core.frames import frame_env, frame_spec, make_frame
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.multistep import (stencil2d_multistep_framed,
                                                stencil2d_multistep_framed_ref)
-    from repro_torch.kernels.stencil2d import alloc_scratch
+    from repro_torch.kernels.stencil2d import alloc_scratch, last_launch
     f = R.helmholtz_jacobi_taps(0.5, 1 / 512)
     cells = size * size
     rows = {}
@@ -584,6 +649,7 @@ def phase5_multistep(gen, size, rate):
         del got, want
         ms_k = cuda_ms(lambda: stencil2d_multistep_framed(
             frame, f, spec, out=out, scratch=scratch, **kw), iters=20)
+        info = last_launch()
         ms_p = cuda_ms(lambda: stencil2d_multistep_framed_ref(
             frame, f, spec, out=out, **kw), iters=3, warmup=1)
         # least work: the frame and the env field read once, the frame
@@ -592,19 +658,20 @@ def phase5_multistep(gen, size, rate):
         bound_ms = max(nbytes / rate, flops / FP32_RATE) * 1e3
         bound_by = "bytes" if nbytes / rate >= flops / FP32_RATE \
             else "operations"
-        # the kernel's own traffic: each tile reads its (bm+2T)(bn+2T)
+        # the kernel's own traffic: each tile reads its (tm+2T)(tn+2T)
         # window of both fields and writes its tile
-        win = (1 + 2 * T / spec.bm) * (1 + 2 * T / spec.bn)
+        tm, tn = info["tm"], info["tn"]
+        win = (1 + 2 * T / tm) * (1 + 2 * T / tn)
         design_ms = (win * 2 * 4 + 4) * cells / rate * 1e3
         log(f"[phase5] multistep_sweep helmholtz {size}x{size} T={T}: "
             f"kernel {ms_k:.4f} ms/launch = {ms_k / T:.4f} ms/sweep, plain "
             f"{ms_p:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), window "
             f"traffic {design_ms:.4f} ms at the HBM rate, "
             f"{nbytes / (ms_k * 1e-3) / 1e9:.0f} GB/s of least bytes, "
-            f"max_abs_err vs plain {err!r}")
+            f"max_abs_err vs plain {err!r}; {launch_note(info)}")
         rows[T] = dict(ms=ms_k, ms_sweep=ms_k / T, plain_ms=ms_p,
                        bound_ms=bound_ms, bound_by=bound_by,
-                       window_ms=design_ms, err=err)
+                       window_ms=design_ms, err=err, info=info)
         del frame, out, env
         torch.cuda.empty_cache()
     return rows
@@ -664,40 +731,70 @@ def phase6(gen, size, runs=3):
 
 
 def phase7(gen, size, rate):
-    """The kernel's time per CTA tile shape, on the Helmholtz sweep
-    at ``size`` (bound by bytes) and on the restoration sweeps at 1080x1920
-    (AMF k=3 is bound by operations)."""
+    """The kernel's time for a range of its own CTA tiles (and window
+    slots) on the frame's default block: the Helmholtz sweep at ``size``
+    on both kernels (T = 1, 4, 8; bound by bytes, then operations) and the
+    restoration sweeps at 1080x1920 (AMF k=3 is bound by operations).  The
+    wrapper's choice is marked."""
     import torch
     from repro_torch.core.frames import frame_env, frame_spec, make_frame
     from repro_torch.kernels import ref as R
-    from repro_torch.kernels.stencil2d import (alloc_scratch,
+    from repro_torch.kernels.multistep import stencil2d_multistep_framed
+    from repro_torch.kernels.stencil2d import (alloc_scratch, last_launch,
                                                stencil2d_fused_framed)
-    cases = [("helmholtz", R.helmholtz_jacobi_taps(0.5, 1 / 512), size,
-              size, "zero", "max", R.abs_delta, 1),
+    helm = R.helmholtz_jacobi_taps(0.5, 1 / 512)
+    wide = [(32, 64, 2), (64, 64, 2), (16, 128, 2), (32, 128, 2),
+            (32, 128, 1), (64, 64, 1), (64, 128, 1)]
+    cases = [("helmholtz", helm, size, size, "zero", "max", R.abs_delta, 1,
+              1, wide),
+             ("helmholtz", helm, size, size, "zero", "max", R.abs_delta, 1,
+              4, wide),
+             ("helmholtz", helm, size, size, "zero", "max", R.abs_delta, 1,
+              8, [(32, 64, 2), (16, 128, 2), (32, 64, 1), (64, 64, 1),
+                  (32, 128, 1), (64, 128, 1)]),
              ("amf_mask k=3", R.amf_detect_taps(3)[0], 1080, 1920,
-              "reflect", "sum", None, 0),
+              "reflect", "sum", None, 0, 1,
+              [(8, 32, 2), (16, 32, 2), (32, 32, 2), (8, 64, 2),
+               (32, 64, 2)]),
              ("restore", R.restore_taps(2.0), 1080, 1920, "reflect", "sum",
-              R.abs_delta, 2)]
-    for label, f, m, n, b, comb, meas, n_env in cases:
+              R.abs_delta, 2, 1,
+              [(8, 32, 2), (16, 64, 2), (32, 64, 2), (16, 128, 2),
+               (32, 128, 2), (32, 128, 1)])]
+    for label, f, m, n, b, comb, meas, n_env, T, tiles in cases:
         a = torch.rand((m, n), generator=gen, device="cuda")
         es = [torch.rand((m, n), generator=gen, device="cuda")
               for _ in range(n_env)]
-        for block in [(8, 32), (16, 32), (32, 32), (64, 32), (32, 64),
-                      (64, 64), (16, 128), (32, 128), (8, 256),
-                      (128, 128)]:
-            spec = frame_spec(m, n, k=f.k, block=block)
-            frame = make_frame(a, spec, b)
-            out = torch.empty_like(frame)
-            env = tuple(frame_env(e, spec, b) for e in es)
-            scratch = alloc_scratch(spec, "cuda")
-            ms = cuda_ms(lambda: stencil2d_fused_framed(
-                frame, f, spec, env_framed=env, combine=comb,
-                measure=meas, out=out, scratch=scratch), iters=20)
+        spec = frame_spec(m, n, k=f.k, sweeps=T)
+        frame = make_frame(a, spec, b)
+        out = torch.empty_like(frame)
+        env = tuple(frame_env(e, spec, b, halo=T > 1) for e in es)
+        scratch = alloc_scratch(spec, "cuda")
+        kw = dict(env_framed=env, combine=comb, measure=meas, out=out,
+                  scratch=scratch)
+        if T > 1:
+            kw.update(T=T, boundary=b)
+
+        def run(tile):
+            if T > 1:
+                return stencil2d_multistep_framed(frame, f, spec, tile=tile,
+                                                  **kw)
+            return stencil2d_fused_framed(frame, f, spec, tile=tile, **kw)
+        run(None)
+        chosen = last_launch()
+        chosen = (chosen["tm"], chosen["tn"], chosen["ring"])
+        for tile in [chosen] + [t for t in tiles if t != chosen]:
+            try:
+                ms = cuda_ms(lambda: run(tile), iters=20)
+            except ValueError as e:      # the window does not fit
+                log(f"[phase7] {label} {m}x{n} T={T} tile {tile}: {e}")
+                continue
+            info = last_launch()
             gbs = (2 + n_env) * m * n * 4 / (ms * 1e-3) / 1e9
-            log(f"[phase7] {label} {m}x{n} block {block} "
-                f"({spec.gm * spec.gn} CTAs): {ms:.4f} ms/sweep, "
-                f"{gbs:.0f} GB/s ({gbs * 1e9 / rate:.3f} of peak)")
-            del frame, out, env
+            log(f"[phase7] {label} {m}x{n} T={T} tile {tile[0]}x{tile[1]} "
+                f"ring {tile[2]}{' (chosen)' if tile == chosen else ''}: "
+                f"{ms:.4f} ms/launch, {gbs:.0f} GB/s of least bytes "
+                f"({gbs * 1e9 / rate:.3f} of peak); {launch_note(info)}")
+        del frame, out, env
         torch.cuda.empty_cache()
 
 
@@ -1001,6 +1098,9 @@ def phase10(gen):
             ts += t
         ref, tt = wall(lambda: loop("torch", T).farm_run(
             init, env=(noisy, masks)))
+        # the device's share of a farm run: the wall above is mostly the
+        # host's loop (launch, ghost refresh, one flag read a check)
+        _, busy, _ = profiled(lambda: lp.farm_run(init, env=(noisy, masks)))
         e_solo = max(max_err(res.a[i], solos[i].a) for i in range(lanes))
         e_torch = max_err(res.a, ref.a)
         checks = max(iters) // T
@@ -1011,7 +1111,8 @@ def phase10(gen):
             f"max|d| vs solo {e_solo!r} vs torch {e_torch!r}; {key} "
             f"launches {launched} for {checks} checks (want "
             f"{want_launches}, each covering all {lanes} lanes); wall "
-            f"farm {tf * 1e3:.2f} ms ({tf * 1e3 / lanes:.3f} ms/frame), "
+            f"farm {tf * 1e3:.2f} ms ({tf * 1e3 / lanes:.3f} ms/frame; "
+            f"device busy {busy * 1e3 / lanes:.3f} ms/frame), "
             f"solo {ts * 1e3 / lanes:.3f} ms/frame, torch farm "
             f"{tt * 1e3:.2f} ms")
         if not (iters == [int(r.iters) for r in solos]
@@ -1020,6 +1121,7 @@ def phase10(gen):
                 and launched == want_launches):
             raise AssertionError(f"phase10 farm_run on {backend} mismatch")
         rows[backend] = dict(ms_frame=tf * 1e3 / lanes,
+                             device_ms_frame=busy * 1e3 / lanes,
                              solo_ms_frame=ts * 1e3 / lanes, iters=iters,
                              err=max(e_solo, e_torch), unroll=T,
                              launches=S.launch_counts[key] - first)
@@ -1537,13 +1639,27 @@ def main(argv=None) -> int:
     phase1(gen)
     err8, err8_bf16 = phase8(gen)
     zero_counts()                                  # main path: 2-4, 9, 10
-    err2, ms_loop, _ = phase2(gen, SIZE, rate)
-    err3 = phase3(gen, SIZE)
-    err4 = phase4(gen)
-    err9, rows9 = phase9(gen, SIZE, ms_loop)
-    rows10 = phase10(gen)
+    by_phase = {}
+
+    def counted(phase, fn, *a):
+        """Run a main-path phase; note its stencil_sweep launches."""
+        before = S.launch_counts["stencil_sweep"]
+        out = fn(*a)
+        by_phase[phase] = S.launch_counts["stencil_sweep"] - before
+        return out
+    err2, ms_loop, _ = counted(2, phase2, gen, SIZE, rate)
+    err3 = counted(3, phase3, gen, SIZE)
+    err4 = counted(4, phase4, gen)
+    err9, rows9 = counted(9, phase9, gen, SIZE, ms_loop)
+    rows10 = counted(10, phase10, gen)
     launches = dict(S.launch_counts)
     log(f"[main] launches on the main path (phases 2-4, 9, 10): {launches}")
+    ss_by_shape = {
+        f"Helmholtz {SIZE}x{SIZE} (phases 2, 3, 9)":
+            by_phase[2] + by_phase[3] + by_phase[9],
+        "1080x1920: AMF k=3, restore, Sobel (phase 4)": by_phase[4],
+        "8 x 1080x1920 restore (phase 10)": by_phase[10]}
+    log(f"[main] stencil_sweep launches by shape: {ss_by_shape}")
     ms_by_T = {f"T={T} (phase 9, Helmholtz {SIZE}x{SIZE})": r["launches"]
                for T, r in rows9.items()}
     ms_by_T["T=3 (phase 10, 8 x 1080x1920 restoration)"] = \
@@ -1552,7 +1668,8 @@ def main(argv=None) -> int:
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"the main path never launched {name}")
-    ms_k, ms_p, bound_ms, bound_by, err5 = phase5(gen, SIZE, rate)
+    rows5s = phase5(gen, SIZE, rate)
+    helm5 = rows5s["helmholtz"]
     rows5 = phase5_multistep(gen, SIZE, rate)
     rows11, err11 = phase11(gen, rate)
     zero_counts()                                  # main path: 12-13
@@ -1605,25 +1722,41 @@ def main(argv=None) -> int:
         lm={"max_dlogits_f32": r12f["max_dlogits"],
             "loss_rel_f32": r12f["loss_rel"], "fault_f32": r12f["fault"],
             "greedy_agree_f32": r13f["agree"]})
+    def launch_of(info):
+        return {k: info[k] for k in ("tm", "tn", "ring", "ctas_per_sm",
+                                     "smem_bytes", "registers")}
     log(json.dumps({"kernels": [{
         "name": "stencil_sweep",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/stencil2d.cu",
+        "source": "src/repro_torch/kernels/csrc/window.cuh",
+        "entry": "src/repro_torch/kernels/csrc/stencil2d.cu",
         "replaces": "src/repro/kernels/stencil2d.py:138",
         "launches": launches["stencil_sweep"],
-        "max_abs_err": max(err2, err3, err4, err5, rows10["cuda"]["err"]),
-        "ms": ms_k,
-        "plain_ms": ms_p,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "max_abs_err": max([err2, err3, err4, rows10["cuda"]["err"]]
+                           + [r["err"] for r in rows5s.values()]),
+        "ms": helm5["ms"],
+        "plain_ms": helm5["plain_ms"],
+        "bound_ms": helm5["bound_ms"],
+        "bound_by": helm5["bound_by"],
         "library_ms": None,
+        "launch": launch_of(helm5["info"]),
+        "launches_by_shape": ss_by_shape,
+        "by_shape": {(f"helmholtz {SIZE}x{SIZE}" if label == "helmholtz"
+                      else f"{label} 1080x1920"): {
+                          "ms": r["ms"], "device_us": r["device_us"],
+                          "plain_ms": r["plain_ms"],
+                          "bound_ms": r["bound_ms"],
+                          "bound_by": r["bound_by"],
+                          "launch": launch_of(r["info"])}
+                     for label, r in rows5s.items()},
         "bf16_max_abs_err": err8_bf16,
-        "phases": {"launched": [2, 3, 4, 10],
+        "phases": {"launched": [2, 3, 4, 9, 10],
                    "held_against_plain": [1, 2, 3, 4, 5, 8, 10]},
     }, {
         "name": "multistep_sweep",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/multistep.cu",
+        "source": "src/repro_torch/kernels/csrc/window.cuh",
+        "entry": "src/repro_torch/kernels/csrc/multistep.cu",
         "replaces": "src/repro/kernels/multistep.py:101",
         "launches": launches["multistep_sweep"],
         "max_abs_err": max([err8, err9, rows10["cuda-multistep"]["err"]]
@@ -1637,7 +1770,8 @@ def main(argv=None) -> int:
         "launches_by_T": ms_by_T,
         "by_T": {T: {"ms_launch": r["ms"], "ms_sweep": r["ms_sweep"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                     "loop_ms_sweep": rows9[T]["ms_sweep"]}
+                     "loop_ms_sweep": rows9[T]["ms_sweep"],
+                     "launch": launch_of(r["info"])}
                  for T, r in rows5.items()},
         "bf16_max_abs_err": err8_bf16,
         "phases": {"launched": [9, 10],

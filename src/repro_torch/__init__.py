@@ -3,9 +3,10 @@
 The JAX package :mod:`repro` is the reference; this package is its twin
 for an NVIDIA H100 and never imports it (nor JAX).  The slice ported so
 far is the paper's own loop on one device: :class:`~repro_torch.core.
-pattern.LoopOfStencilReduce` on a persistent halo frame, whose sweep is a
-hand-written CUDA kernel (``kernels/csrc/stencil2d.cu``), driven by the
-§4 apps in :mod:`repro_torch.kernels.ops`.
+pattern.LoopOfStencilReduce` on a persistent halo frame, whose sweeps
+run on a hand-written CUDA kernel (``kernels/csrc/window.cuh``), driven
+by the §4 apps in :mod:`repro_torch.kernels.ops`; further slices are
+listed in ROADMAP.md.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``, which selects the plain PyTorch path.

@@ -20,9 +20,11 @@ lane stack of frames (leading lane axis), the carry of the lane farm
     └──────────────────────────────┘
 
 The ghost ring equals :meth:`Boundary.pad` cell for cell (corners compose
-axis by axis, like ``jnp.pad``).  The tile (bm, bn) is the CUDA kernel's
-CTA tile; the reference's 8/128 clipping is a TPU tiling rule and does not
-apply here (rows clip to a multiple of 8, columns to a warp of 32).
+axis by axis, like ``jnp.pad``).  The block (bm, bn) sets the frame's
+round-up; the CUDA kernel picks its own CTA tile
+(:func:`repro_torch.kernels.stencil2d.cta_tile`).  The reference's 8/128
+clipping is a TPU tiling rule and does not apply here (rows clip to a
+multiple of 8, columns to a warp of 32).
 """
 from __future__ import annotations
 
@@ -48,8 +50,8 @@ class FrameSpec:
     n: int          # logical domain cols
     k: int          # stencil radius per sweep
     pad: int        # ghost-ring width (= k·sweeps for temporal blocking)
-    bm: int         # tile rows (CTA tile of the kernel)
-    bn: int         # tile cols
+    bm: int         # block rows (the round-up)
+    bn: int         # block cols
     gm: int         # grid rows
     gn: int         # grid cols
 

@@ -85,7 +85,8 @@ class LoopOfStencilReduce:
     backend:  ``None`` (``"cuda"`` on a CUDA device, ``"torch"`` on the
               CPU), ``"torch"``, ``"cuda"`` or ``"cuda-multistep"`` (the
               kernel backends: taps mode, 2-D arrays).
-    block:    the kernel's CTA tile (rows, cols).
+    block:    the frame's block (rows, cols): its round-up (the kernels
+              choose their own CTA tile).
     sentinel: a :class:`~repro_torch.core.reduce.Sentinel` health policy,
               or None (only the CONVERGED bit is tracked).
     device:   ``None`` (the CUDA card) or an explicit device.

@@ -2,7 +2,7 @@
 
 PyTorch twin of :mod:`repro.core.reduce`.  On the card the first phase of
 the paper's two-phase reduce runs inside the stencil kernel (one partial
-per tile) and the final combine runs in the same launch
+per CTA and lane) and the final combine runs in the same launch
 (:mod:`repro_torch.kernels.stencil2d`); the functions here are the plain
 realisations the ``"torch"`` backend and the tests use.
 

@@ -23,8 +23,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-SOURCES = ("stencil2d.cu", "multistep.cu", "swa_attention.cu", "swa_wgmma.cu")
-HEADERS = ("elementals.cuh", "fold.cuh", "dispatch.cuh")
+SOURCES = ("stencil2d.cu", "multistep.cu", "window_bf16.cu",
+           "swa_attention.cu", "swa_wgmma.cu")
+HEADERS = ("elementals.cuh", "fold.cuh", "dispatch.cuh", "window.cuh")
 # --fmad=false: no multiply-add contraction, so the functors round exactly
 # like the plain PyTorch bodies; no --use_fast_math (IEEE div and sqrtf).
 NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -119,18 +120,22 @@ def library() -> ctypes.CDLL:
         i, i, i, vp, i,              # functor, radius, dtype, params, n
         vp, vp, vp, vp,              # in, out, env0, env1
         ll, i,                       # ld, lanes
-        i, i, i, i, i, i, i,         # pad, gm, gn, bm, bn, m, n
+        i, i, i, i, i,               # pad, mi, ni, m, n
+        i, i, i,                     # tm, tn, ring
         i, i, i,                     # monoid, measure, do_reduce
-        vp, vp, vp, vp, vp]          # live, partials, ticket, result, stream
+        vp, vp, i,                   # live, partials, slots
+        vp, vp, vp]                  # ticket, result, stream
     lib.stencil_sweep.restype = i
     lib.multistep_sweep.argtypes = [
         i, i, i, vp, i,              # functor, radius, dtype, params, n
         vp, vp, vp, vp,              # in, out, env0, env1
         ll, i,                       # ld, lanes
-        i, i, i, i, i, i, i, i,      # k, T, gm, gn, bm, bn, m, n
+        i, i, i, i, i, i,            # k, T, mi, ni, m, n
+        i, i, i,                     # tm, tn, ring
         i, i, i, i, i,               # row_lo, row_hi, col_lo, col_hi, bnd
         i, i,                        # monoid, measure
-        vp, vp, vp, vp, vp]          # live, partials, ticket, result, stream
+        vp, vp, i,                   # live, partials, slots
+        vp, vp, vp]                  # ticket, result, stream
     lib.multistep_sweep.restype = i
     lib.swa_attention_fwd.argtypes = [
         i, i, vp, vp, vp, vp,        # dtype, head_dim, q, k, v, out
@@ -142,6 +147,8 @@ def library() -> ctypes.CDLL:
         i, i, i, i, i,               # bh, bkh, S, window, causal
         ctypes.c_float, ctypes.c_float, vp]   # scale, softcap, stream
     lib.swa_attention_wgmma.restype = i
+    lib.stencil_launch_info.argtypes = [vp]
+    lib.stencil_launch_info.restype = None
     lib.stencil_error_string.argtypes = [i]
     lib.stencil_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,7 +1,7 @@
-// Run-time (dtype, functor, radius) -> kernel instantiation, shared by the
-// stencil kernels.  `go` is a generic callable taking two type tags, the
-// storage type and the functor type, and returning the launch's error code;
-// each kernel's C entry point passes a lambda that launches its template.
+// Run-time (functor, radius) -> kernel instantiation for one storage type
+// (window.cuh's launch_f32 / launch_bf16).  `go` is a generic callable
+// taking two type tags, the storage type and the functor type, and
+// returning the launch's error code.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,14 +51,6 @@ int by_functor(int functor, int radius, Go& go) {
       }
     default: return kNone;
   }
-}
-
-// dtype: 0 float32, 1 bfloat16 (DTYPE_IDS in repro_torch/kernels/stencil2d.py)
-template <class Go>
-int by_dtype_and_functor(int dtype, int functor, int radius, Go&& go) {
-  if (dtype == 0) return by_functor<float>(functor, radius, go);
-  if (dtype == 1) return by_functor<__nv_bfloat16>(functor, radius, go);
-  return fold::kErrBadArgs;
 }
 
 }  // namespace dispatch

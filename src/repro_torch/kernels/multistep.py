@@ -1,14 +1,16 @@
 """Temporal blocking: T fused sweeps per device-memory round trip.
 
 PyTorch/CUDA twin of :mod:`repro.kernels.multistep`.  The TPU kernel
-``_ms_kernel`` becomes the hand-written CUDA kernel in
-``csrc/multistep.cu`` (built at first use by :mod:`._build`): each output
-tile loads its (bm+2kT, bn+2kT) window of the frame, and of every env field,
-into shared memory once, applies T sweeps there with the valid region
-shrinking by k a side per sweep, re-asserts the boundary model ⊥ after every
-sweep, writes the tile's final values, and folds ``measure(last, second
-last)`` over the domain cells — per-CTA partials combined by the last CTA in
-the same launch, as in :mod:`.stencil2d`.
+``_ms_kernel`` becomes the hand-written CUDA kernel of ``csrc/window.cuh``
+(entry point ``csrc/multistep.cu``, built at first use by :mod:`._build`):
+persistent CTAs walk output tiles of the kernel's own size
+(:func:`~repro_torch.kernels.stencil2d.cta_tile`); each tile's (tm+2kT,
+tn+2kT) window of the frame, and of every env field, is staged in shared
+memory while the previous tile sweeps, T sweeps run there with the valid
+region shrinking by k a side per sweep, ⊥ is re-asserted after every sweep,
+the last sweep writes the tile's final values and folds ``measure(last,
+second last)`` over the domain cells — per-CTA partials combined by the last
+CTA in the same launch, as in :mod:`.stencil2d`.
 
 * :func:`stencil2d_multistep_framed` — frame in (pad = k·T), frame out; on a
   CUDA tensor it launches the kernel (or raises), on a CPU tensor it runs
@@ -47,25 +49,29 @@ from ..core.frames import (DEFAULT_BLOCK, FrameSpec, frame_env, frame_spec,
                            make_frame, unframe)
 from ..core.reduce import resolve_monoid, tree_reduce
 from ..core.semantics import Boundary
-from .stencil2d import (DTYPE_IDS, MONOID_IDS, _check_frame,
+from . import stencil2d as _single
+from .stencil2d import (DTYPE_IDS, MONOID_IDS, SMEM_BYTES, _check_frame,
                         _identity_scalar, check_kernel_operands,
-                        decode_result, kernel_descriptor, lanes_ref,
-                        launch_counts, live_pointer, reduce_operands)
+                        check_pair_layout, decode_result, kernel_descriptor,
+                        lanes_ref, launch_counts, live_pointer,
+                        reduce_operands, resolve_tile)
 
-# boundary names → ids of the ``BoundaryId`` enum in csrc/multistep.cu
+# boundary names → ids of the ``BoundaryId`` enum in csrc/window.cuh
 BOUNDARY_IDS = {"zero": 0, "nan": 1, "reflect": 2, "wrap": 3}
 # the sharded deployment's "no edge on this side" bound
 SENTINEL = 1 << 30
-# shared memory a block may use on an H100 (232,448 bytes), less what the
-# kernel's reduce epilogue takes statically (257 words, rounded up)
-SMEM_BYTES = 232448 - 2048
 
 
-def window_bytes(spec: FrameSpec, n_env: int) -> int:
-    """Shared memory of one CTA: two float state buffers and one per env
-    field, each (bm + 2kT)(bn + 2kT) floats."""
-    wm, wn = spec.bm + 2 * spec.pad, spec.bn + 2 * spec.pad
-    return (2 + n_env) * wm * wn * 4
+def window_bytes(spec: FrameSpec, n_env: int, tile, itemsize: int = 4,
+                 boundary="zero", ring: int = 2) -> int:
+    """Shared memory of one CTA of a T-sweep launch on ``spec`` (pad k·T)
+    with the kernel's CTA ``tile`` (tm, tn): ``ring`` slots of the
+    (tm+2kT, tn+2kT) window of the frame and of each env field (full halo
+    frames), and a work buffer when T > 1 or the boundary reflects."""
+    T = spec.pad // spec.k
+    return _single.window_bytes(
+        tile, spec.pad, n_env, itemsize, env_halo=True, ring=ring,
+        work=T > 1 or Boundary(boundary) is Boundary.REFLECT)
 
 
 def _bounds(spec: FrameSpec, domain_bounds) -> tuple:
@@ -190,7 +196,8 @@ def stencil2d_multistep_framed(frame: torch.Tensor, f: Callable,
                                acc_dtype=torch.float32,
                                out: Optional[torch.Tensor] = None,
                                scratch: Optional[tuple] = None,
-                               live: Optional[torch.Tensor] = None):
+                               live: Optional[torch.Tensor] = None,
+                               tile: Optional[tuple] = None):
     """T fused sweeps on a persistent halo frame — frame in, frame out.
 
     ``spec`` must have ``pad == k*T``; ``env_framed`` are full halo frames
@@ -200,11 +207,13 @@ def stencil2d_multistep_framed(frame: torch.Tensor, f: Callable,
     ``reduced`` is ``/(⊕) : measure(last, second last)`` over the domain.
     ``domain_bounds`` (4 ints, or a (1, 4) tensor) overrides where ⊥ sees
     the domain edge.  ``scratch`` is
-    :func:`repro_torch.kernels.stencil2d.alloc_scratch`'s.
+    :func:`repro_torch.kernels.stencil2d.alloc_scratch`'s.  ``tile`` forces
+    the kernel's CTA tile, as for the single-step wrapper.
 
     On a CUDA tensor this launches the kernel — with the same requirements
-    as the single-step kernel, and a window that fits the block's shared
-    memory (:func:`window_bytes`) — or raises.  On a CPU tensor it runs
+    as the single-step kernel; the CTA tile shrinks until its window fits a
+    block's shared memory (:func:`window_bytes`), which fails only past
+    what an 8x32 tile can hold — or raises.  On a CPU tensor it runs
     :func:`stencil2d_multistep_framed_ref`.
     """
     _check_pad(spec, T)
@@ -227,27 +236,33 @@ def stencil2d_multistep_framed(frame: torch.Tensor, f: Callable,
         raise ValueError(
             f"{el.functor} reads {el.n_env} env fields; got "
             f"{len(env_framed)}")
-    need = window_bytes(spec, el.n_env)
+    check_pair_layout(spec, frame, *env_framed)
+    reflect = Boundary(boundary) is Boundary.REFLECT
+    tm, tn, ring = resolve_tile(tile, spec, lanes, el, frame, env_halo=True,
+                                work=T > 1 or reflect, T=T)
+    need = window_bytes(spec, el.n_env, (tm, tn), frame.element_size(),
+                        boundary, ring)
     if need > SMEM_BYTES:
         raise ValueError(
-            f"the {spec.bm + 2 * spec.pad}x{spec.bn + 2 * spec.pad} window "
-            f"of a {spec.bm}x{spec.bn} tile at k*T={spec.pad} with "
-            f"{el.n_env} env fields needs {need} bytes of shared memory; "
-            f"a block has {SMEM_BYTES}.  Lower unroll or the tile")
+            f"the {tm + 2 * spec.pad}x{tn + 2 * spec.pad} window of a "
+            f"{tm}x{tn} tile at k*T={spec.pad} with {el.n_env} env fields "
+            f"needs {need} bytes of shared memory; a block has "
+            f"{SMEM_BYTES}.  Lower unroll or the tile")
     if out is None:
         out = torch.empty_like(frame)
     live, live_ptr = live_pointer(live, lanes, frame.device)
     result, ptrs = reduce_operands(spec, lanes, frame.device, scratch)
     envs = [e.data_ptr() for e in env_framed] + [None] * (2 - el.n_env)
     params = (ctypes.c_float * max(len(el.params), 1))(*el.params)
+    mi, ni = spec.interior
 
     from . import _build
     lib = _build.library()
     rc = lib.multistep_sweep(
         el.functor_id, el.k, DTYPE_IDS[frame.dtype], params,
         len(el.params), frame.data_ptr(), out.data_ptr(), envs[0], envs[1],
-        spec.shape[1], lanes or 1, spec.k, T, spec.gm, spec.gn, spec.bm,
-        spec.bn, spec.m, spec.n, *_bounds(spec, domain_bounds),
+        spec.shape[1], lanes or 1, spec.k, T, mi, ni, spec.m, spec.n, tm, tn,
+        ring, *_bounds(spec, domain_bounds),
         BOUNDARY_IDS[Boundary(boundary).value], MONOID_IDS[mname], mid,
         live_ptr, *ptrs,
         torch.cuda.current_stream(frame.device).cuda_stream)

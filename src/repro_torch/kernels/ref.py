@@ -39,7 +39,7 @@ FUNCTOR_IDS = {
     "restore": 8,
     "conv": 9,
 }
-# measure names → ids of the ``MeasureId`` enum in csrc/stencil2d.cu
+# measure names → ids of the ``MeasureId`` enum in csrc/fold.cuh
 MEASURE_IDS = {"none": 0, "abs_delta": 1}
 MAX_PARAMS = 49          # 7×7 conv weights — ``Params`` in elementals.cuh
 MAX_ENV = 2

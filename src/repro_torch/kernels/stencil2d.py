@@ -1,13 +1,15 @@
 """Fused stencil + reduce sweep on a persistent halo frame (paper §3.3 core).
 
 PyTorch/CUDA twin of :mod:`repro.kernels.stencil2d`.  The TPU kernel
-``_stencil_kernel`` becomes the hand-written CUDA kernel in
-``csrc/stencil2d.cu`` (built at first use by :mod:`._build`): one sweep of
-an elemental functor over the frame's block-rounded interior, written into
-the same layout of a second frame (ghost ring untouched), with the
-measure folded over the in-domain cells to one ⊕ scalar by per-tile
-partials and a last-CTA combine in the same launch (deterministic, no
-float atomics).
+``_stencil_kernel`` becomes the hand-written CUDA kernel of
+``csrc/window.cuh`` at T = 1 (entry point ``csrc/stencil2d.cu``, built at
+first use by :mod:`._build`): one sweep of an elemental functor over the
+frame's block-rounded interior, written into the same layout of a second
+frame (ghost ring untouched), with the measure folded over the in-domain
+cells to one ⊕ scalar by per-CTA partials and a last-CTA combine in the
+same launch (deterministic, no float atomics).  Persistent CTAs walk
+tiles of the kernel's own size (:func:`cta_tile`, not the frame's block),
+staging each window in shared memory while the previous one sweeps.
 
 * :func:`stencil2d_fused_framed` — the zero-copy loop body: frame in,
   frame out.  On a CUDA tensor it launches the kernel (or raises); on a
@@ -37,6 +39,7 @@ identity — the lane farm's frozen lanes
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -46,7 +49,7 @@ from ..core.frames import (DEFAULT_BLOCK, FrameSpec, frame_env, frame_spec,
 from ..core.reduce import monoid_name, resolve_monoid, tree_reduce
 from .ref import FUNCTOR_IDS, MEASURE_IDS, Elemental, Measure
 
-# monoid names → ids of the ``MonoidId`` enum in csrc/stencil2d.cu
+# monoid names → ids of the ``MonoidId`` enum in csrc/fold.cuh
 MONOID_IDS = {"sum": 0, "prod": 1, "max": 2, "min": 3, "any": 4, "all": 5}
 
 # storage dtypes of the kernels → the ``dtype`` argument of the C entries
@@ -56,6 +59,23 @@ DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 # else), for this kernel and for ``multistep.stencil2d_multistep_framed``;
 # chip_smoke.py zeroes them before the main path and reads them after
 launch_counts = {"stencil_sweep": 0, "multistep_sweep": 0}
+
+# The kernel's CTA tiles and their shared memory (csrc/window.cuh).  A
+# block may use 232,448 bytes of an H100 SM's 233,472 (the fold's static
+# words come off them), and each CTA costs the system 1 KB more.
+SMEM_BYTES = 232448 - 1024
+SM_SMEM = 233472
+CTA_SMEM = 1024 + 64     # reserved + the fold's static words, a CTA
+N_SM = 132               # H100 SXM; tile choice only, the launch asks
+MAX_GRID = 4096          # kMaxGrid: the persistent grid's cap
+TILE_ROWS = (8, 16, 32, 64)
+TILE_COLS = (32, 64, 128)
+# measured on an H100 (chip_smoke.py phase 7): one CTA an SM, or two,
+# leave latency that three hide
+CTA_PENALTY = {1: 1.3, 2: 1.1, 3: 1.0}
+# functors bound by operations (they sort up to 49 values a cell): their
+# tiles are many and small, so the persistent CTAs share the work evenly
+OPERATION_BOUND = frozenset({"amf_mask", "amf_repl"})
 
 
 class FrameTaps:
@@ -141,17 +161,17 @@ def check_kernel_operands(frame, env_framed, env_shape, acc_dtype, out,
 
 
 def reduce_operands(spec, lanes, device, scratch):
-    """(partials, ticket, result) pointers of one launch: the reduce
+    """(partials, slots a lane, ticket, result) of one launch: the reduce
     scratch (allocated when not given) and a fresh result of one float per
     lane."""
     partials, ticket = (scratch if scratch is not None
                         else alloc_scratch(spec, device, lanes or 1))
-    if partials.numel() < (lanes or 1) * spec.gm * spec.gn \
-            or ticket.numel() < (lanes or 1):
+    slots = partials.numel() // (lanes or 1)
+    if slots < partial_slots(spec) or ticket.numel() < (lanes or 1):
         raise ValueError("scratch too small for this frame geometry")
     result = torch.empty((lanes,) if lanes else (), dtype=torch.float32,
                          device=device)
-    return result, (partials.data_ptr(), ticket.data_ptr(),
+    return result, (partials.data_ptr(), slots, ticket.data_ptr(),
                     result.data_ptr())
 
 
@@ -165,6 +185,21 @@ def live_pointer(live, lanes, device):
     if live.shape != (lanes,):
         raise ValueError(f"live must have shape ({lanes},)")
     return live, live.data_ptr()
+
+
+def check_pair_layout(spec: FrameSpec, *tensors) -> None:
+    """The kernel stages element pairs, so every row of a frame or env
+    field must start on an even element: the interior's width (gn·bn) must
+    be even, as it is for every block of a whole number of 32 columns, and
+    each tensor must start on a pair boundary."""
+    if spec.interior[1] % 2:
+        raise ValueError(
+            f"the CUDA sweep needs an even interior width; got "
+            f"{spec.interior[1]} (block {spec.bm}x{spec.bn})")
+    for t in tensors:
+        if t.data_ptr() % (2 * t.element_size()):
+            raise ValueError("frames and env fields must start on an even "
+                             "element (a view at an odd offset)")
 
 
 def decode_result(result, mname):
@@ -209,12 +244,141 @@ def stencil2d_fused_framed_ref(frame: torch.Tensor, f: Callable,
     return out, red
 
 
+def window_bytes(tile, pad: int, n_env: int, itemsize: int = 4, *,
+                 env_halo: bool = False, work: bool = False,
+                 ring: int = 2) -> int:
+    """Dynamic shared memory of one CTA of the stencil kernel (``Layout``
+    in csrc/window.cuh): ``ring`` slots, each the (tm+2·pad, tn+2·pad)
+    window of the frame and one window per env field (the same, for full
+    halo env frames, or the tile, for interior ones), and with ``work``
+    one more frame window for the sweeps to ping-pong through; each buffer
+    rounded up to 16 bytes."""
+    tm, tn = tile
+    wm, wn = tm + 2 * pad, tn + 2 * pad
+    e = 0 if env_halo else pad
+
+    def r16(b):
+        return -(-b // 16) * 16
+
+    win = r16(wm * wn * itemsize)
+    env = r16((wm - 2 * e) * (wn - 2 * e) * itemsize)
+    return ring * (win + n_env * env) + (win if work else 0)
+
+
+def sweep_cells(tile, pad: int, T: int) -> float:
+    """Lane-cells a CTA evaluates per useful cell and sweep: sweep s covers
+    (tm + 2k(T-1-s)) rows of columns rounded up to warps of 32, k = pad/T
+    (the recomputed halo and the idle lanes of a ragged chunk)."""
+    tm, tn = tile
+    k = pad // T
+    lanes = 0
+    for s in range(T):
+        halo = 2 * k * (T - 1 - s)
+        lanes += (tm + halo) * -(-(tn + halo) // 32) * 32
+    return lanes / (T * tm * tn)
+
+
+@functools.lru_cache(maxsize=256)
+def cta_tile(mi: int, ni: int, *, lanes: int = 1, pad: int = 1, T: int = 1,
+             n_env: int = 0, itemsize: int = 4, env_halo: bool = False,
+             work: bool = False, heavy: bool = False) -> tuple:
+    """The kernel's CTA tile for a (lanes, mi, ni) interior swept T times
+    a launch: ``(tm, tn, ring)``, tm a multiple of 8 and tn of 32 (at most
+    the interior rounded up to those), ``ring`` the window slots (2: the
+    next window loads while this one sweeps).
+
+    Among the tiles whose shared memory fits a CTA it keeps those that
+    leave room for two CTAs an SM (if any do), and orders them by the
+    lane-cells a useful cell costs (:func:`sweep_cells`, weighed by
+    ``CTA_PENALTY`` for the CTAs an SM the shared memory allows), then two
+    slots before one, then width (wider rows coalesce better), then the
+    window's bytes a tile cell; it takes the first with enough tiles for the
+    persistent CTAs to share them evenly (4 an SM, 32 for an
+    operation-bound functor, ``heavy``, whose tiles are ordered smallest
+    first), or, on a frame too small for that, the one with the most
+    tiles.  Raises only when no tile fits (then no 8x32 tile does)."""
+    rows = sorted({min(t, -(-mi // 8) * 8) for t in TILE_ROWS})
+    cols = sorted({min(t, -(-ni // 32) * 32) for t in TILE_COLS})
+    kw = dict(env_halo=env_halo, work=work)
+
+    def nbytes(o):
+        return window_bytes(o[:2], pad, n_env, itemsize, ring=o[2], **kw)
+
+    fits = [(tm, tn, ring) for ring in (2, 1) for tm in rows for tn in cols
+            if nbytes((tm, tn, ring)) <= SMEM_BYTES]
+    if not fits:
+        raise ValueError(
+            f"no CTA tile's window fits {SMEM_BYTES} bytes of shared "
+            f"memory at pad {pad} with {n_env} env fields; lower unroll")
+    pool = [o for o in fits if 2 * (nbytes(o) + CTA_SMEM) <= SM_SMEM] or fits
+
+    def tiles(o):
+        return lanes * -(-mi // o[0]) * -(-ni // o[1])
+
+    def cost(o):
+        # lane-cells a useful cell, dearer with fewer CTAs an SM to hide
+        # latency (shared memory's count, at most the 3 that the
+        # registers allow)
+        ctas = min(3, SM_SMEM // (nbytes(o) + CTA_SMEM))
+        return round(sweep_cells(o[:2], pad, T) * CTA_PENALTY[ctas], 2)
+
+    if heavy:
+        pool.sort(key=lambda o: (o[0] * o[1], -o[2], -o[1]))
+    else:
+        pool.sort(key=lambda o: (cost(o), -o[2], -o[1],
+                                 (o[0] + 2 * pad) * (o[1] + 2 * pad)
+                                 / (o[0] * o[1])))
+    want = N_SM * (32 if heavy else 4)
+    for o in pool:
+        if tiles(o) >= want:
+            return o
+    return max(pool, key=lambda o: (tiles(o), o[1]))
+
+
+def partial_slots(spec: FrameSpec) -> int:
+    """Reduce partials one lane may need: one per CTA that visits it, at
+    most one per 8x32 piece of the interior or the grid's cap."""
+    mi, ni = spec.interior
+    return min(-(-mi // 8) * -(-ni // 32), MAX_GRID)
+
+
 def alloc_scratch(spec: FrameSpec, device, lanes: int = 1) -> tuple:
-    """Reduce scratch of one frame geometry: per-tile partials and the
+    """Reduce scratch of one frame geometry: per-CTA partials and the
     last-CTA ticket of each lane (zeroed; the kernel leaves them zeroed)."""
-    return (torch.empty(lanes * spec.gm * spec.gn, dtype=torch.float32,
+    return (torch.empty(lanes * partial_slots(spec), dtype=torch.float32,
                         device=device),
             torch.zeros(lanes, dtype=torch.int32, device=device))
+
+
+def resolve_tile(tile, spec: FrameSpec, lanes, el, frame, *, env_halo,
+                 work, T=1) -> tuple:
+    """``(tm, tn, ring)`` of a launch: ``tile`` as given ((tm, tn) takes
+    two slots), or :func:`cta_tile`'s choice for this frame, functor and
+    T."""
+    if tile is None:
+        mi, ni = spec.interior
+        return cta_tile(mi, ni, lanes=lanes or 1, pad=spec.pad, T=T,
+                        n_env=el.n_env, itemsize=frame.element_size(),
+                        env_halo=env_halo, work=work,
+                        heavy=el.functor in OPERATION_BOUND)
+    tm, tn, ring = (tuple(tile) + (2,))[:3]
+    if tm <= 0 or tn <= 0 or tm % 8 or tn % 32 or ring not in (1, 2):
+        raise ValueError(f"a CTA tile is (tm, tn[, ring]) with tm a "
+                         f"multiple of 8, tn of 32, ring 1 or 2; got {tile}")
+    return tm, tn, ring
+
+
+def last_launch() -> dict:
+    """What the last stencil kernel launch chose (csrc/multistep.cu
+    ``stencil_launch_info``): grid, CTAs an SM, shared memory a CTA,
+    registers a thread, the tile and its window slots, (tile, lane)
+    pairs."""
+    from . import _build
+    out = (ctypes.c_int * 8)()
+    _build.library().stencil_launch_info(out)
+    keys = ("grid", "ctas_per_sm", "smem_bytes", "registers", "tm", "tn",
+            "ring", "tiles")
+    return dict(zip(keys, out))
 
 
 def kernel_descriptor(f, measure, combine, identity) -> tuple:
@@ -247,7 +411,8 @@ def stencil2d_fused_framed(frame: torch.Tensor, f: Callable, spec: FrameSpec,
                            acc_dtype=torch.float32, do_reduce: bool = True,
                            out: Optional[torch.Tensor] = None,
                            scratch: Optional[tuple] = None,
-                           live: Optional[torch.Tensor] = None):
+                           live: Optional[torch.Tensor] = None,
+                           tile: Optional[tuple] = None):
     """One fused sweep on a persistent halo frame — frame in, frame out.
 
     ``frame`` has the layout of ``spec``, or is a lane stack of such frames
@@ -259,7 +424,8 @@ def stencil2d_fused_framed(frame: torch.Tensor, f: Callable, spec: FrameSpec,
     ``reduced`` is ``/(⊕) : measure(new, old_center)`` over the domain (of
     ``new`` when measure is None), or ⊕'s identity with ``do_reduce=False``.
     ``scratch`` (:func:`alloc_scratch`) lets a loop reuse the reduce
-    buffers.
+    buffers.  ``tile`` forces the kernel's CTA tile ((tm, tn) or (tm, tn,
+    ring), see :func:`cta_tile`, which chooses it otherwise).
 
     On a CUDA tensor this launches the kernel — ``f`` must be an
     :class:`~repro_torch.kernels.ref.Elemental`, ``measure`` None or a
@@ -286,6 +452,16 @@ def stencil2d_fused_framed(frame: torch.Tensor, f: Callable, spec: FrameSpec,
         raise ValueError(
             f"{el.functor} reads {el.n_env} env fields; got "
             f"{len(env_framed)}")
+    check_pair_layout(spec, frame, *env_framed)
+    tm, tn, ring = resolve_tile(tile, spec, lanes, el, frame,
+                                env_halo=False, work=False)
+    need = window_bytes((tm, tn), spec.pad, el.n_env, frame.element_size(),
+                        ring=ring)
+    if need > SMEM_BYTES:
+        raise ValueError(
+            f"the window of a {tm}x{tn} tile at pad {spec.pad} with "
+            f"{el.n_env} env fields and {ring} slots needs {need} bytes of "
+            f"shared memory; a block has {SMEM_BYTES}")
     if out is None:
         out = torch.empty_like(frame)
     live, live_ptr = live_pointer(live, lanes, frame.device)
@@ -293,18 +469,18 @@ def stencil2d_fused_framed(frame: torch.Tensor, f: Callable, spec: FrameSpec,
     if do_reduce:
         result, ptrs = reduce_operands(spec, lanes, frame.device, scratch)
     else:
-        ptrs = (None, None, None)
+        ptrs = (None, 0, None, None)
     envs = [e.data_ptr() for e in env_framed] + [None] * (2 - el.n_env)
     params = (ctypes.c_float * max(len(el.params), 1))(*el.params)
+    mi, ni = spec.interior
 
     from . import _build
     lib = _build.library()
     rc = lib.stencil_sweep(
         el.functor_id, el.k, DTYPE_IDS[frame.dtype], params,
         len(el.params), frame.data_ptr(), out.data_ptr(), envs[0], envs[1],
-        spec.shape[1], lanes or 1, spec.pad, spec.gm, spec.gn, spec.bm,
-        spec.bn, spec.m, spec.n, MONOID_IDS[mname], mid, int(do_reduce),
-        live_ptr, *ptrs,
+        spec.shape[1], lanes or 1, spec.pad, mi, ni, spec.m, spec.n, tm, tn,
+        ring, MONOID_IDS[mname], mid, int(do_reduce), live_ptr, *ptrs,
         torch.cuda.current_stream(frame.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(

@@ -193,6 +193,213 @@ def test_cuda_farm_run_matches_solo_runs(cuda, backend, unroll, key):
 
 
 # ---------------------------------------------------------------------------
+# the kernel's own CTA tile: tiles that do not divide the interior, rows that
+# are not 16-byte aligned, the one-slot ring, lane stacks across tiles
+# ---------------------------------------------------------------------------
+
+def sweep_functor(name):
+    """(elemental, env fields, binary input) of a registered functor."""
+    w7 = field(14, (7, 7)) * 0.1
+    return {
+        "jacobi": (TR.jacobi_taps(0.25), 0, False),
+        "helmholtz": (TR.helmholtz_jacobi_taps(0.5, 0.2), 1, False),
+        "heat": (TR.heat_taps(0.1), 0, False),
+        "sobel": (TR.sobel_taps(), 0, False),
+        "gol": (TR.gol_taps(), 0, True),
+        "median3": (TR.median3_taps(), 0, False),
+        "restore": (TR.restore_taps(2.0), 2, False),
+        "conv7": (TR.conv_taps(w7), 0, False),
+        "amf_mask3": (TR.amf_detect_taps(3)[0], 0, False),
+        "amf_repl3": (TR.amf_detect_taps(3)[1], 0, False),
+    }[name]
+
+
+def inputs(cuda, shape, n_env, binary=False, seed=40):
+    a = field(seed, shape)
+    a = (a > 0.5).astype(np.float32) if binary else a
+    env = [np.abs(field(seed + 1 + i, shape)) for i in range(n_env)]
+    if n_env == 2:                     # restore: noisy frame and 0/1 mask
+        env[1] = (env[1] > 0.7).astype(np.float32)
+    return (torch.as_tensor(a, device=cuda),
+            [torch.as_tensor(e, device=cuda) for e in env])
+
+
+def exact(got, want):
+    return torch.equal(torch.nan_to_num(got, nan=7.0),
+                       torch.nan_to_num(want, nan=7.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [None, (64, 128), (8, 32, 1)])
+@pytest.mark.parametrize("name", ["jacobi", "helmholtz", "heat", "sobel",
+                                  "gol", "median3", "restore", "conv7",
+                                  "amf_mask3", "amf_repl3"])
+def test_cuda_stencil_sweep_on_any_tile_matches_plain(cuda, name, tile):
+    # 100x300: the interior is 128x320, which a 64x128 tile does not divide
+    # (nor does 32x128 below)
+    f, n_env, binary = sweep_functor(name)
+    m, n = 100, 300
+    a, env = inputs(cuda, (m, n), n_env, binary)
+    spec = frame_spec(m, n, k=f.k)
+    frame = make_frame(a, spec, "reflect")
+    env = tuple(frame_env(e, spec, "reflect") for e in env)
+    kw = dict(env_framed=env, combine="sum", measure=TR.abs_delta)
+    got, red = TK.stencil2d_fused_framed(frame, f, spec, tile=tile, **kw)
+    info = TK.last_launch()
+    again, red2 = TK.stencil2d_fused_framed(frame, f, spec, tile=tile, **kw)
+    want, wred = TK.stencil2d_fused_framed_ref(frame, f, spec, **kw)
+    p = spec.pad
+    mi, ni = spec.interior
+    assert exact(got[p:p + mi, p:p + ni], want[p:p + mi, p:p + ni])
+    torch.testing.assert_close(red, wred, rtol=1e-5, atol=0)
+    assert torch.equal(red, red2)                           # fixed order
+    assert torch.equal(got[p:p + mi, p:p + ni], again[p:p + mi, p:p + ni])
+    if tile is not None:
+        assert (info["tm"], info["tn"], info["ring"]) == (tuple(tile)
+                                                          + (2,))[:3]
+    # do_reduce=False: the same sweep, no fold
+    quiet, ident = TK.stencil2d_fused_framed(frame, f, spec, tile=tile,
+                                             do_reduce=False, **kw)
+    assert torch.equal(quiet[p:p + mi, p:p + ni], got[p:p + mi, p:p + ni])
+    assert float(ident) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("boundary", BOUNDARIES)
+@pytest.mark.parametrize("tile", [None, (32, 128), (8, 32, 1)])
+@pytest.mark.parametrize("name", ["helmholtz", "lopsided", "sobel",
+                                  "restore", "amf_repl3"])
+def test_cuda_multistep_T4_on_any_tile_matches_plain(cuda, name, tile,
+                                                     boundary):
+    f, n_env, _ = (sweep_functor(name) if name != "lopsided"
+                   else (PORT_FN["lopsided"], 0, False))
+    T = 2 if name == "amf_repl3" else 4      # radius 3: kT = 6
+    m, n = 100, 300
+    a, env = inputs(cuda, (m, n), n_env)
+    spec = frame_spec(m, n, k=f.k, sweeps=T)
+    frame = make_frame(a, spec, boundary)
+    env = tuple(frame_env(e, spec, boundary, halo=True) for e in env)
+    kw = dict(T=T, env_framed=env, combine="max", measure=TR.abs_delta,
+              boundary=boundary)
+    got, red = TM.stencil2d_multistep_framed(frame, f, spec, tile=tile, **kw)
+    want, wred = TM.stencil2d_multistep_framed_ref(frame, f, spec, **kw)
+    p = spec.pad
+    assert exact(got[p:p + m, p:p + n], want[p:p + m, p:p + n])
+    assert torch.equal(red, wred) or (bool(torch.isnan(red))
+                                      and bool(torch.isnan(wred)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,k,T", [("float32", 1, 3), ("float32", 3, 1),
+                                       ("bfloat16", 1, 2),
+                                       ("bfloat16", 1, 3)])
+def test_cuda_rows_not_16_byte_aligned(cuda, dtype, k, T):
+    # row strides of 320 + 2kT elements: 1304 bytes (f32, kT = 3), 648 and
+    # 652 bytes (bf16, kT = 2 and 3), none a multiple of 16
+    dt = getattr(torch, dtype)
+    m, n = 100, 300
+    f = TR.heat_taps(0.1) if k == 1 else TR.conv_taps(field(15, (7, 7)) * 0.1)
+    a, _ = inputs(cuda, (m, n), 0)
+    a = a.to(dt)
+    spec = frame_spec(m, n, k=k, sweeps=T)
+    frame = make_frame(a, spec, "wrap")
+    kw = dict(T=T, combine="sum", measure=TR.abs_delta, boundary="wrap")
+    got, red = TM.stencil2d_multistep_framed(frame, f, spec, **kw)
+    want, wred = TM.stencil2d_multistep_framed_ref(frame, f, spec, **kw)
+    p = spec.pad
+    if dt == torch.float32:
+        assert exact(got[p:p + m, p:p + n], want[p:p + m, p:p + n])
+        torch.testing.assert_close(red, wred, rtol=1e-5, atol=0)
+        return
+    torch.testing.assert_close(got[p:p + m, p:p + n].float(),
+                               want[p:p + m, p:p + n].float(), atol=5e-2,
+                               rtol=5e-2)
+    # T single-step launches of the bf16 kernel give the same bits
+    s1 = frame_spec(m, n, k=k)
+    cur = make_frame(a, s1, "wrap")
+    nxt = torch.empty_like(cur)
+    for _ in range(T):
+        nxt, _ = TK.stencil2d_fused_framed(cur, f, s1, combine="sum",
+                                           out=nxt)
+        refresh_frame(nxt, s1, "wrap")
+        cur, nxt = nxt, cur
+    assert torch.equal(got[p:p + m, p:p + n], cur[k:k + m, k:k + n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["helmholtz", "restore"])
+@pytest.mark.parametrize("T", [1, 2])
+def test_cuda_division_outside_the_fast_range_matches_plain(cuda, name, T):
+    # zeros, subnormals, tiny and huge values, inf and nan send groups of
+    # cells through the kernel's IEEE re-run (div_fast covers operands in
+    # [2^-100, 2^100) only); every cell must still match bit for bit
+    f, n_env, _ = sweep_functor(name)
+    m, n = 64, 160
+    rng = np.random.default_rng(60)
+    vals = np.array([0.0, -0.0, 1e-39, -3e-41, 1e-31, 1e30, -3e38, np.inf,
+                     np.nan, 0.5, -2.0], dtype=np.float32)
+    a = torch.as_tensor(rng.choice(vals, size=(m, n)), device=cuda)
+    env = [torch.as_tensor(rng.choice(vals, size=(m, n)), device=cuda)
+           for _ in range(n_env)]
+    if n_env == 2:
+        env[1] = (env[1] > 0).float()
+    spec = frame_spec(m, n, k=1, sweeps=T)
+    frame = make_frame(a, spec, "zero")
+    kw = dict(combine="max", measure=TR.abs_delta)
+    if T == 1:
+        env = tuple(frame_env(e, spec, "zero") for e in env)
+        got, red = TK.stencil2d_fused_framed(frame, f, spec, env_framed=env,
+                                             **kw)
+        want, wred = TK.stencil2d_fused_framed_ref(frame, f, spec,
+                                                   env_framed=env, **kw)
+    else:
+        env = tuple(frame_env(e, spec, "zero", halo=True) for e in env)
+        kw.update(T=T, boundary="zero")
+        got, red = TM.stencil2d_multistep_framed(frame, f, spec,
+                                                 env_framed=env, **kw)
+        want, wred = TM.stencil2d_multistep_framed_ref(frame, f, spec,
+                                                       env_framed=env, **kw)
+    p = spec.pad
+    g, w = got[p:p + m, p:p + n], want[p:p + m, p:p + n]
+    assert torch.equal(torch.isnan(g), torch.isnan(w))
+    assert torch.equal(torch.nan_to_num(g, nan=7.0, posinf=8.0, neginf=9.0),
+                       torch.nan_to_num(w, nan=7.0, posinf=8.0, neginf=9.0))
+    assert torch.equal(red, wred) or (bool(torch.isnan(red))
+                                      and bool(torch.isnan(wred)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["stencil_sweep", "multistep_sweep"])
+@pytest.mark.parametrize("tile", [(8, 32), (64, 128, 1)])
+def test_cuda_lane_stack_across_tiles(cuda, kernel, tile):
+    # five lanes, two frozen: a CTA's tiles cross lane boundaries
+    T = 3 if kernel == "multistep_sweep" else 1
+    m, n, b = 60, 200, "zero"
+    spec = frame_spec(m, n, k=1, sweeps=T)
+    stack = torch.as_tensor(np.stack([field(50 + i, (m, n))
+                                      for i in range(5)]), device=cuda)
+    frames = make_lane_frames(stack, spec, b)
+    live = torch.tensor([True, False, True, True, False], device=cuda)
+    f = TR.heat_taps(0.1)
+    kw = dict(combine="sum", measure=TR.abs_delta, live=live)
+    if kernel == "multistep_sweep":
+        kw.update(T=T, boundary=b)
+        run, ref = TM.stencil2d_multistep_framed, \
+            TM.stencil2d_multistep_framed_ref
+    else:
+        run, ref = TK.stencil2d_fused_framed, TK.stencil2d_fused_framed_ref
+    got, red = run(frames, f, spec, tile=tile, **kw)
+    want, wred = ref(frames, f, spec, **kw)
+    p = spec.pad
+    assert exact(got[:, p:p + m, p:p + n], want[:, p:p + m, p:p + n])
+    for lane in (1, 4):
+        assert torch.equal(got[lane, p:p + m, p:p + n],
+                           frames[lane, p:p + m, p:p + n])
+    torch.testing.assert_close(red, wred, rtol=1e-5, atol=0)
+    assert float(red[1]) == 0.0 == float(red[4])
+
+
+# ---------------------------------------------------------------------------
 # sliding-window attention and the LM forward
 # ---------------------------------------------------------------------------
 

@@ -163,23 +163,34 @@ def _mirror(g, lo, hi):
     return s if s is not None and lo <= s < hi else None
 
 
-def emulate_kernel(frame, f, spec, T, env, boundary, bounds):
-    """What ``multistep_kernel`` in csrc/multistep.cu does, tile by tile:
-    stage the (bm+2kT, bn+2kT) window, sweep T times over a region that
-    shrinks by k a side (window coordinates), re-assert ⊥ after every sweep
-    (zero/nan fill; reflect rows, then columns, each cell taking its mirror
-    only where that lies in the domain and in the region), and write the
-    tile's final values."""
-    k, bm, bn, pad = spec.k, spec.bm, spec.bn, spec.pad
+def emulate_kernel(frame, f, spec, T, env, boundary, bounds, tile=None):
+    """What ``window_kernel`` in csrc/window.cuh does, tile by tile: stage
+    the (tm+2kT, tn+2kT) window (zeros past the frame's end), sweep T times
+    over a region that shrinks by k a side (window coordinates), re-assert
+    ⊥ after every sweep (zero/nan fill; reflect rows, then columns, each
+    cell taking its mirror only where that lies in the domain and in the
+    region), and write the tile's final values inside the block-rounded
+    interior.  ``tile`` is the kernel's CTA tile (the frame's block when
+    None)."""
+    k, pad = spec.k, spec.pad
+    bm, bn = tile or (spec.bm, spec.bn)
+    mi, ni = spec.interior
     wm, wn = bm + 2 * pad, bn + 2 * pad
     rlo, rhi, clo, chi = bounds
     b = Boundary(boundary)
     out = torch.zeros_like(frame)
-    for i in range(spec.gm):
-        for j in range(spec.gn):
+
+    def staged(x):                       # the frame, zero-filled past its end
+        z = torch.zeros((-(-mi // bm) * bm + 2 * pad,
+                         -(-ni // bn) * bn + 2 * pad), dtype=x.dtype)
+        z[:x.shape[0], :x.shape[1]] = x
+        return z
+    frame_z, env_z = staged(frame), [staged(e) for e in env]
+    for i in range(-(-mi // bm)):
+        for j in range(-(-ni // bn)):
             r0, c0 = i * bm, j * bn
-            cur = frame[r0:r0 + wm, c0:c0 + wn].clone()
-            ew = [e[r0:r0 + wm, c0:c0 + wn] for e in env]
+            cur = frame_z[r0:r0 + wm, c0:c0 + wn].clone()
+            ew = [e[r0:r0 + wm, c0:c0 + wn] for e in env_z]
             for s in range(T):
                 lo = k * (s + 1)
                 R, C = wm - 2 * lo, wn - 2 * lo
@@ -205,8 +216,9 @@ def emulate_kernel(frame, f, spec, T, env, boundary, bounds):
                         if src is not None and lo <= src - c0 < lo + C:
                             nxt[lo:lo + R, c] = nxt[lo:lo + R, src - c0]
                 cur = nxt
-            out[pad + r0:pad + r0 + bm, pad + c0:pad + c0 + bn] = \
-                cur[pad:pad + bm, pad:pad + bn]
+            rows, cols = min(bm, mi - r0), min(bn, ni - c0)
+            out[pad + r0:pad + r0 + rows, pad + c0:pad + c0 + cols] = \
+                cur[pad:pad + rows, pad:pad + cols]
     return out
 
 
@@ -278,12 +290,16 @@ def test_framed_wrapper_on_cpu_is_the_plain_version_with_lanes():
 
 def test_window_bytes_and_source_ids():
     spec = frame_spec(1000, 1000, k=3, sweeps=8)        # pad 24
-    assert TM.window_bytes(spec, 0) == 2 * 80 * 80 * 4
-    assert TM.window_bytes(spec, 2) == 4 * 80 * 80 * 4
-    assert TM.window_bytes(frame_spec(1000, 1000, k=3, sweeps=40), 2) \
-        > TM.SMEM_BYTES
+    # the kernel's CTA tile sets the window, not the frame's block: two
+    # slots of (frame, env fields) and the sweeps' work buffer
+    assert TM.window_bytes(spec, 0, (32, 32)) == 3 * 80 * 80 * 4
+    assert TM.window_bytes(spec, 2, (32, 32)) == 7 * 80 * 80 * 4
+    assert TM.window_bytes(spec, 2, (32, 32), ring=1) == 4 * 80 * 80 * 4
+    assert TM.window_bytes(spec, 0, (8, 32), itemsize=2) == 3 * 56 * 80 * 2
+    assert TM.window_bytes(frame_spec(1000, 1000, k=3, sweeps=40), 2,
+                           (8, 32)) > TM.SMEM_BYTES
     import re
-    cu = (CSRC / "multistep.cu").read_text()
+    cu = (CSRC / "window.cuh").read_text()
     body = re.search(r"enum\s+BoundaryId\s*:\s*int\s*\{(.*?)\}", cu,
                      re.S).group(1)
     ids = {k[2:].lower(): int(v)
@@ -291,7 +307,96 @@ def test_window_bytes_and_source_ids():
     assert ids == TM.BOUNDARY_IDS
     from repro_torch.kernels import _build
     assert "multistep.cu" in _build.SOURCES
-    assert {"fold.cuh", "dispatch.cuh"} <= set(_build.HEADERS)
+    assert {"fold.cuh", "dispatch.cuh", "window.cuh"} <= set(_build.HEADERS)
+
+
+@pytest.mark.parametrize("boundary,T,tile,sentinel", [
+    ("reflect", 3, (16, 64), None),      # tiles past the interior's end
+    ("zero", 4, (8, 96), None),
+    ("nan", 2, (24, 32), "cols"),
+    ("wrap", 5, (40, 64), None),         # one tile row, past both ends
+])
+def test_kernel_tile_past_interior_equals_whole_frame(boundary, T, tile,
+                                                      sentinel):
+    m, n = 37, 70                        # interior 40 x 96 at block 8 x 32
+    a = torch.as_tensor(field(7, (m, n)))
+    e = torch.as_tensor(field(8, (m, n)))
+    f = with_env(PORT_FN["lopsided"])
+    spec = frame_spec(m, n, k=1, block=(8, 32), sweeps=T)
+    p = spec.pad
+    bounds = [p, p + m, p, p + n]
+    if sentinel == "cols":
+        bounds[2:] = [-TM.SENTINEL, TM.SENTINEL]
+    frame = make_frame(a, spec, boundary)
+    env = (frame_env(e, spec, boundary, halo=True),)
+    got = emulate_kernel(frame, f, spec, T, env, boundary, bounds, tile)
+    want, _ = TM.stencil2d_multistep_framed_ref(
+        frame, f, spec, T=T, env_framed=env, boundary=boundary,
+        domain_bounds=bounds)
+    torch.testing.assert_close(got[p:p + m, p:p + n], want[p:p + m, p:p + n],
+                               rtol=0, atol=0, equal_nan=True)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's CTA tile for T sweeps (stencil2d.cta_tile through the
+# multistep wrapper's arguments), pinned on the CPU
+# ---------------------------------------------------------------------------
+
+def ms_tile(spec, n_env, itemsize=4, boundary="zero"):
+    """The tile the multistep wrapper asks for on ``spec``."""
+    T = spec.pad // spec.k
+    mi, ni = spec.interior
+    return TK.cta_tile(mi, ni, pad=spec.pad, T=T, n_env=n_env,
+                       itemsize=itemsize, env_halo=True,
+                       work=T > 1 or boundary == "reflect")
+
+
+@pytest.mark.parametrize("k,T,n_env", [(3, 3, 0), (3, 3, 2), (1, 8, 1),
+                                       (1, 8, 2), (2, 6, 1)])
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_cta_tile_fits_radius3_T3_and_helmholtz_T8(k, T, n_env, itemsize):
+    spec = frame_spec(8192, 8192, k=k, sweeps=T)
+    for boundary in ("zero", "reflect"):
+        tm, tn, ring = ms_tile(spec, n_env, itemsize, boundary)
+        assert tm % 8 == 0 and tn % 32 == 0 and ring in (1, 2)
+        assert TM.window_bytes(spec, n_env, (tm, tn), itemsize, boundary,
+                               ring) <= TM.SMEM_BYTES
+
+
+def test_cta_tile_shrinks_where_the_block_kernel_ran():
+    # The kernel before the tile was its own ran a 32x32 block whenever
+    # (2 + n_env) float windows of (32 + 2kT)^2 fit 230,400 bytes; the CTA
+    # tile must shrink to fit there, never raise.
+    for k in (1, 2, 3):
+        for T in range(1, 14):
+            for n_env in (0, 1, 2):
+                old = (2 + n_env) * (32 + 2 * k * T) ** 2 * 4
+                if old > 232448 - 2048:
+                    continue
+                spec = frame_spec(1000, 1312, k=k, sweeps=T)
+                for itemsize in (4, 2):
+                    tm, tn, ring = ms_tile(spec, n_env, itemsize, "reflect")
+                    assert TM.window_bytes(spec, n_env, (tm, tn), itemsize,
+                                           "reflect", ring) \
+                        <= TM.SMEM_BYTES, (k, T, n_env)
+    with pytest.raises(ValueError, match="no CTA tile"):
+        ms_tile(frame_spec(1000, 1312, k=3, sweeps=40), 2)
+
+
+def test_cta_tile_at_the_main_paths_shapes():
+    # the Helmholtz 8192^2 launches of chip_smoke.py phase 9 and the
+    # 8-lane restoration farm at T = 3 (phase 10)
+    got = {T: ms_tile(frame_spec(8192, 8192, k=1, sweeps=T), 1)
+           for T in (2, 4, 8)}
+    assert got == {2: (32, 128, 1), 4: (32, 128, 1), 8: (32, 128, 1)}
+    spec = frame_spec(1080, 1920, k=1, sweeps=3)
+    mi, ni = spec.interior
+    assert TK.cta_tile(mi, ni, lanes=8, pad=3, T=3, n_env=2, env_halo=True,
+                       work=True) == (16, 128, 1)
+    # two slots where they leave three CTAs an SM, and the measured cost
+    # of fewer CTAs: lane-cells a useful cell, weighed
+    assert TK.sweep_cells((32, 128), 2, 2) == (34 * 160 + 32 * 128) / 8192
+    assert TK.sweep_cells((32, 128), 1, 1) == 1.0
 
 
 # ---------------------------------------------------------------------------

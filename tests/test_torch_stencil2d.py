@@ -205,6 +205,65 @@ def test_kernel_descriptor_rejects_what_has_no_functor():
 
 
 # ---------------------------------------------------------------------------
+# the kernel's own CTA tile (cta_tile), its shared memory and the reduce
+# scratch, pinned on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mi,ni", [(8192, 8192), (1088, 1920), (1024, 1312),
+                                   (128, 320), (64, 160), (8, 32)])
+@pytest.mark.parametrize("pad,n_env,heavy", [(1, 0, False), (1, 1, False),
+                                             (1, 2, False), (3, 0, True),
+                                             (3, 0, False)])
+@pytest.mark.parametrize("lanes", [1, 8])
+def test_cta_tile_is_whole_pieces_that_fit(mi, ni, pad, n_env, heavy,
+                                           lanes):
+    tm, tn, ring = TK.cta_tile(mi, ni, lanes=lanes, pad=pad, n_env=n_env,
+                               heavy=heavy)
+    assert tm % 8 == 0 and tn % 32 == 0 and ring in (1, 2)
+    assert tm <= -(-mi // 8) * 8 and tn <= -(-ni // 32) * 32
+    assert TK.window_bytes((tm, tn), pad, n_env, ring=ring) \
+        <= TK.SMEM_BYTES
+
+
+def test_cta_tile_at_the_main_paths_shapes():
+    # Helmholtz 8192^2 (phases 2-3), AMF k=3 and restore at 1080x1920
+    # (phase 4), a frame too small to fill the card
+    assert TK.cta_tile(8192, 8192, pad=1, n_env=1) == (32, 128, 2)
+    assert TK.cta_tile(1088, 1920, pad=3, heavy=True) == (8, 32, 2)
+    assert TK.cta_tile(1088, 1920, pad=1, n_env=2) == (16, 128, 2)
+    assert TK.cta_tile(64, 160, pad=1) == (8, 32, 2)
+
+
+def test_window_bytes_and_partial_slots():
+    # two slots of a 34x130 frame window and a 32x128 env tile: 68,128
+    # bytes, what the kernel reported on the card for this launch
+    assert TK.window_bytes((32, 128), 1, 1) == 2 * (34 * 130 + 32 * 128) * 4
+    assert TK.window_bytes((32, 128), 1, 1, ring=1, work=True) \
+        == 2 * 34 * 130 * 4 + 32 * 128 * 4
+    # bf16: 10 x 34 x 2 = 680 bytes, each buffer rounded up to 16 bytes
+    assert TK.window_bytes((8, 32), 1, 0, itemsize=2) == 2 * 688
+    # one partial per CTA that visits a lane: at most the 8x32 pieces or
+    # the grid's cap
+    assert TK.partial_slots(frame_spec(8192, 8192)) == TK.MAX_GRID
+    assert TK.partial_slots(frame_spec(40, 136)) == (64 // 8) * (160 // 32)
+
+
+def test_forced_tiles_are_checked():
+    spec = frame_spec(40, 136)
+    frame = torch.zeros(spec.shape)
+    el = TR.heat_taps(0.1)
+    assert TK.resolve_tile((16, 64), spec, None, el, frame, env_halo=False,
+                           work=False) == (16, 64, 2)
+    for bad in ((12, 32), (16, 48), (16, 32, 3)):
+        with pytest.raises(ValueError, match="CTA tile"):
+            TK.resolve_tile(bad, spec, None, el, frame, env_halo=False,
+                            work=False)
+    odd = frame_spec(40, 15, block=(8, 15))
+    with pytest.raises(ValueError, match="even interior width"):
+        TK.check_pair_layout(odd, torch.zeros(odd.shape))
+
+
+# ---------------------------------------------------------------------------
 # On the card: the CUDA kernel against its plain version (skipped without a
 # CUDA device; chip_smoke.py runs the full-size version of this check).
 # ---------------------------------------------------------------------------
