@@ -39,8 +39,9 @@ greedy serving — on one CUDA card at full size:
      device time (the event timing there reads the host's issue rate);
  11. swa_attention vs plain on both routes (bf16 at hd 64/128/256 on the
      wgmma kernel, the rest on the CUDA-core one): the reference test's
-     shapes (GQA, softcap, every head_dim) in f32 within 2e-5 and their
-     bf16 twins within one bf16 ulp, each call counted on its route;
+     shapes (GQA, softcap, every head_dim) in f32 within 2e-5 (the share
+     of the limit used printed) and their bf16 twins within one bf16 ulp,
+     each call counted on its route;
      gemma2-9b's local and global layers at S=8192 on each route as the
      LM path gives them (bf16 on wgmma within one bf16 ulp, f32 on the
      CUDA cores within 2e-5), each with a planted fault (the band one kv
@@ -49,7 +50,10 @@ greedy serving — on one CUDA card at full size:
      the type's peak (bf16: also the split design's, P·V twice: 1.5x the
      tensor-core work), the plain version's time and a library call's
      (flex_attention); registers and spills of both kernels (a spill
-     fails the phase);
+     fails the phase); the CUDA-core kernel's launch (grid, heads and
+     positions a CTA, warps an SM, shared memory, registers); then that
+     kernel in f32 at every head_dim (hd 96 included) at the local
+     layer's shape, each held against the plain version and timed;
  12. gemma2-9b at full width and depth in bf16, B=1, S=8192: the scoring
      forward on the kernel route (42 launches a forward) and on the einsum
      route, lm_loss, max|dlogits| and top-1 agreement gated; then in f32
@@ -1216,8 +1220,9 @@ def phase11(gen, rate):
     and global layers at S=8192 on both routes as the LM path runs them
     (bf16 on the wgmma kernel, f32 on the CUDA-core one; the plain version
     one kv head group at a time), with per-launch times, the bounds, the
-    plain version's time and a library call's.  Returns ({route: {layer:
-    row}}, {route: worst max_abs_err})."""
+    plain version's time and a library call's; then the CUDA-core kernel
+    in f32 at every head_dim.  Returns ({route: {layer: row}}, {route:
+    worst max_abs_err}, {head_dim: row})."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import swa_attention as A
@@ -1233,8 +1238,12 @@ def phase11(gen, rate):
     if spills:
         raise AssertionError(f"phase11: the SWA kernels spill: {spills}")
 
-    def rnd(rows, S, hd, dtype):
-        return torch.randn((rows, S, hd), generator=gen, device="cuda") \
+    # cases added after the LM phases' draws were fixed take their inputs
+    # from a side generator, so phases 12-13 see the same inputs as before
+    side = torch.Generator(device="cuda").manual_seed(gen.initial_seed() + 16)
+
+    def rnd(rows, S, hd, dtype, g=gen):
+        return torch.randn((rows, S, hd), generator=g, device="cuda") \
             .to(dtype)
 
     def launch(route, *args, **kw):
@@ -1253,14 +1262,17 @@ def phase11(gen, rate):
         (8, 4, 256, 64, 128, True, 0.0), (2, 2, 256, 64, 128, True, 50.0),
         (2, 2, 256, 16, 8, True, 50.0), (2, 1, 256, 32, 0, True, 0.0),
         (4, 2, 1024, 256, 300, True, 50.0), (1, 1, 64, 64, 0, True, 0.0)]
+    side_cases = [(4, 2, 256, 96, 100, True, 50.0)]
     lims = {torch.bfloat16: (TOL_SWA_BF16_RTOL, TOL_SWA_BF16_ATOL),
             torch.float32: (0.0, TOL_SWA_F32)}
     err = dict.fromkeys(A.launch_counts, 0.0)
     err_f32 = use_twin = 0.0
     twin_routes = dict.fromkeys(A.launch_counts, 0)
-    for bh, bkh, S, hd, window, causal, cap in cases:
+    for case in cases + side_cases:
+        bh, bkh, S, hd, window, causal, cap = case
         kw = dict(window=window, causal=causal, softcap=cap)
-        q, k, v = (rnd(n, S, hd, torch.float32) for n in (bh, bkh, bkh))
+        g = side if case in side_cases else gen
+        q, k, v = (rnd(n, S, hd, torch.float32, g) for n in (bh, bkh, bkh))
         e = max_err(launch("cuda_core", q, k, v, **kw),
                     A.swa_attention_plain(q, k, v, **kw))
         err_f32 = max(err_f32, e)
@@ -1284,8 +1296,9 @@ def phase11(gen, rate):
                 f"phase11 swa_attention bf16 "
                 f"{(bh, bkh, S, hd, window, causal, cap)} kernel/plain "
                 f"outside one bf16 ulp (use {use!r})")
-    log(f"[phase11] {len(cases)} f32 cases ok, worst max_abs_err vs plain "
-        f"{err_f32!r} (tol {TOL_SWA_F32}); their bf16 twins ok "
+    log(f"[phase11] {len(cases) + len(side_cases)} f32 cases ok, worst max_abs_err vs plain "
+        f"{err_f32!r} (tol {TOL_SWA_F32}: {err_f32 / TOL_SWA_F32:.4f} of the "
+        f"limit); their bf16 twins ok "
         f"(routes {twin_routes}), {use_twin:.4f} of the one-ulp limit; "
         f"worst max_abs_err by route {err}")
 
@@ -1339,6 +1352,7 @@ def phase11(gen, rate):
             err[route] = max(err[route], e)
             ms = cuda_ms(lambda: A.swa_attention(q, k, v, **kw), iters=5,
                          warmup=1)
+            info = A.last_launch() if route == "cuda_core" else None
             plain_ms = cuda_ms(lambda: A.swa_attention_plain(q, k, v, **kw),
                                iters=2, warmup=1)
             torch.cuda.empty_cache()
@@ -1357,7 +1371,7 @@ def phase11(gen, rate):
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, split_bound_ms=split_ms, tflops=tflops,
                 library_ms=lib_ms, library=lib_label, err=e, limit_use=use,
-                fault_limit_use=use_bad)
+                fault_limit_use=use_bad, launch=info)
             split = "" if split_ms is None else \
                 f", split-design bound {split_ms:.4f} ms"
             peak = "bf16 tensor cores" if elem == 2 else "f32 CUDA cores"
@@ -1368,11 +1382,58 @@ def phase11(gen, rate):
                 f"({bound_by}, {peak}){split}, {lib_label} "
                 f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} ms"
                 f"{'' if lib_err is None else f' (max_abs_err vs kernel {lib_err:.3g})'}"
-                f", max_abs_err vs plain {e!r}")
+                f", max_abs_err vs plain {e!r}"
+                f"{'' if info is None else '; ' + swa_launch_note(info)}")
             del q, k, v
             torch.cuda.empty_cache()
         del qkv
-    return rows, err
+    return rows, err, swa_core_by_hd(side, rate)
+
+
+def swa_launch_note(info) -> str:
+    return (f"grid {info['grid_x']}x{info['grid_y']} of {info['threads']} "
+            f"threads ({info['heads_per_cta']} heads x {info['bq']} "
+            f"positions a CTA, {info['bk']}-key tiles, {info['stages']} "
+            f"ring slots), {info['ctas_per_sm']} CTA(s) = "
+            f"{info['warps_per_sm']} warps an SM, {info['smem_bytes']} B "
+            f"shared, {info['registers']} registers")
+
+
+def swa_core_by_hd(gen, rate):
+    """The CUDA-core kernel in float32 at every head_dim it takes, at
+    gemma2's local layer otherwise (S=8192, 16/8 heads, window 4096,
+    softcap 50), on inputs from ``gen`` (phase 11's side generator): held
+    against the plain version on one kv head's group (2e-5), then timed,
+    with its bound and launch facts."""
+    import torch
+    from repro_torch.kernels import swa_attention as A
+    window, H, KH = 4096, 16, 8
+    out = {}
+    for hd in A.HEAD_DIMS:
+        q, k, v = (torch.randn((n, LM_SEQ, hd), generator=gen, device="cuda")
+                   for n in (H, KH, KH))
+        kw = dict(window=window, causal=True, softcap=50.0)
+        got = A.swa_attention(q, k, v, **kw)[:H // KH]
+        e = max_err(got, A.swa_attention_plain(q[:H // KH], k[:1], v[:1],
+                                               **kw))
+        if not e <= TOL_SWA_F32:
+            raise AssertionError(f"phase11 cuda_core f32 hd {hd} S {LM_SEQ}:"
+                                 f" kernel/plain max_abs_err {e!r}")
+        ms = cuda_ms(lambda: A.swa_attention(q, k, v, **kw), iters=3,
+                     warmup=1)
+        info = A.last_launch()
+        bound_ms, bound_by, _ = swa_bounds(LM_SEQ, window, H, KH, hd, 4,
+                                           rate=rate)
+        tflops = 4 * hd * band_pairs(LM_SEQ, window) * H / (ms * 1e-3) / 1e12
+        out[hd] = dict(ms=ms, tflops=tflops, bound_ms=bound_ms,
+                       bound_by=bound_by, err=e, launch=info)
+        log(f"[phase11] cuda_core f32 hd {hd} (S {LM_SEQ}, H 16, KH 8, "
+            f"window {window}, softcap 50): {ms:.4f} ms ({tflops:.2f} "
+            f"TFLOP/s), bound {bound_ms:.4f} ms ({bound_by}), max_abs_err "
+            f"vs plain {e!r}; {swa_launch_note(info)}")
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return out
 
 
 def lm_model(cfg, gen):
@@ -1671,7 +1732,7 @@ def main(argv=None) -> int:
     rows5s = phase5(gen, SIZE, rate)
     helm5 = rows5s["helmholtz"]
     rows5 = phase5_multistep(gen, SIZE, rate)
-    rows11, err11 = phase11(gen, rate)
+    rows11, err11, by_hd11 = phase11(gen, rate)
     zero_counts()                                  # main path: 12-13
     r12, r13, r12f, r13f = lm_phases(gen)
     lm_launches = dict(A.launch_counts)
@@ -1718,7 +1779,8 @@ def main(argv=None) -> int:
             "greedy_agree_bf16": r13["agree"]})
     swa_core = swa_entry(
         "cuda_core", "src/repro_torch/kernels/csrc/swa_attention.cu",
-        takes="float32 at every hd, bfloat16 at hd 16/32",
+        takes="float32 at every hd, bfloat16 at hd 16/32/96",
+        launch=rows11["cuda_core"]["local"]["launch"], by_hd=by_hd11,
         lm={"max_dlogits_f32": r12f["max_dlogits"],
             "loss_rel_f32": r12f["loss_rel"], "fault_f32": r12f["fault"],
             "greedy_agree_f32": r13f["agree"]})

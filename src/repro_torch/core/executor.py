@@ -46,20 +46,24 @@ __all__ = ["BACKENDS", "StencilEngine", "auto_unroll",
 
 
 # auto_unroll's limits, the reference's own: the deepest T tried, the most
-# recomputed halo cells per output cell, and the body steps one dispatch
-# should cover.
+# recomputed halo cells per output cell, the body steps one dispatch should
+# cover, and the block its redundancy is counted on when the caller gives
+# none (the reference's default block, not the port's frame layout block).
 UNROLL_CAP = 8
 REDUNDANCY_LIMIT = 1.5
 DISPATCH_AMORTIZE = 64
+AUTO_UNROLL_BLOCK = (256, 256)
 
 
-def auto_unroll(m: int, n: int, *, k: int = 1, block=DEFAULT_BLOCK,
+def auto_unroll(m: int, n: int, *, k: int = 1, block=AUTO_UNROLL_BLOCK,
                 segment: Optional[int] = None) -> int:
     """Temporal-blocking depth T for ``unroll="auto"`` on
     ``"cuda-multistep"`` — a copy of the reference's heuristic with the
-    same arithmetic, so the same arguments give the same T (the 8/128 tile
-    clipping included).  The pattern passes the port's own ``block``, so
-    ``"auto"`` resolves by the port's tile.
+    same arithmetic and defaults, so the same arguments give the same T
+    (the 8/128 tile clipping included) and a loop resolves ``"auto"`` to
+    the reference's T: the pattern passes the caller's ``block``, or none.
+    The kernel picks its own CTA tile, so T does not depend on the frame
+    layout's ``DEFAULT_BLOCK``.
 
     Take the largest T ≤ ``UNROLL_CAP`` with k·T < min(m, n) (the halo
     must fit the domain) and (1 + 2kT/bm)(1 + 2kT/bn) ≤

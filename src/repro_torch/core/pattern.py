@@ -32,7 +32,7 @@ import torch
 
 from ..device import KERNEL_BACKENDS, resolve_backend, resolve_device, \
     to_device
-from .executor import auto_unroll, check_unroll_feasible
+from .executor import AUTO_UNROLL_BLOCK, auto_unroll, check_unroll_feasible
 from .frames import DEFAULT_BLOCK
 from .reduce import (HEALTH_STALL_MASK, health_update, resolve_monoid,
                      tree_reduce)
@@ -80,13 +80,15 @@ class LoopOfStencilReduce:
               (may overshoot convergence by < unroll iterations);
               ``"auto"`` resolves to 1 on the single-step backends and by
               :func:`~repro_torch.core.executor.auto_unroll` (with this
-              loop's ``block``) on ``"cuda-multistep"``, where ``unroll``
-              is the number of sweeps fused into one launch.
+              loop's ``block``, or the reference's default where it is
+              None) on ``"cuda-multistep"``, where ``unroll`` is the
+              number of sweeps fused into one launch.
     backend:  ``None`` (``"cuda"`` on a CUDA device, ``"torch"`` on the
               CPU), ``"torch"``, ``"cuda"`` or ``"cuda-multistep"`` (the
               kernel backends: taps mode, 2-D arrays).
     block:    the frame's block (rows, cols): its round-up (the kernels
-              choose their own CTA tile).
+              choose their own CTA tile); None lays frames out by
+              ``frames.DEFAULT_BLOCK``.
     sentinel: a :class:`~repro_torch.core.reduce.Sentinel` health policy,
               or None (only the CONVERGED bit is tracked).
     device:   ``None`` (the CUDA card) or an explicit device.
@@ -106,7 +108,7 @@ class LoopOfStencilReduce:
     max_iters: int = 10_000
     unroll: Any = 1
     backend: Optional[str] = None
-    block: tuple = DEFAULT_BLOCK
+    block: Optional[tuple] = None
     sentinel: Optional[Any] = None
     device: Any = None
 
@@ -207,7 +209,8 @@ class LoopOfStencilReduce:
             return self
         m, n = shape[-2], shape[-1]
         if self.unroll == "auto":
-            T = (auto_unroll(m, n, k=self.k, block=self.block)
+            T = (auto_unroll(m, n, k=self.k,
+                             block=self.block or AUTO_UNROLL_BLOCK)
                  if self.backend == "cuda-multistep" else 1)
             return dataclasses.replace(self, unroll=T)
         if self.backend in KERNEL_BACKENDS:
@@ -223,7 +226,8 @@ class LoopOfStencilReduce:
         return StencilEngine(
             f=self.f, k=self.k, boundary=self.boundary,
             combine=self.combine, identity=self.identity, delta=self.delta,
-            measure=self.measure, block=self.block, unroll=self.unroll,
+            measure=self.measure, block=self.block or DEFAULT_BLOCK,
+            unroll=self.unroll,
             backend=("cuda-multistep" if self.backend == "cuda-multistep"
                      else "cuda"))
 

@@ -147,6 +147,8 @@ def library() -> ctypes.CDLL:
         i, i, i, i, i,               # bh, bkh, S, window, causal
         ctypes.c_float, ctypes.c_float, vp]   # scale, softcap, stream
     lib.swa_attention_wgmma.restype = i
+    lib.swa_launch_info.argtypes = [vp]
+    lib.swa_launch_info.restype = None
     lib.stencil_launch_info.argtypes = [vp]
     lib.stencil_launch_info.restype = None
     lib.stencil_error_string.argtypes = [i]

@@ -11,8 +11,10 @@ chosen by dtype and head_dim alone (:func:`_route`):
   CTA per (128-row q block, query head), P·V with P split into two bf16
   parts so the output stays within one bf16 ulp of the float32 version;
 * ``"cuda_core"`` — ``csrc/swa_attention.cu``, float32 at every head_dim
-  and bfloat16 at 16 and 32: float FMAs, one CTA per (64-row q block,
-  query head).
+  and bfloat16 at 16, 32 and 96: float FMAs on the CUDA cores, one CTA of
+  512 threads per (q block, kv head) serving up to 8 query heads of the
+  kv group (64 rows), 256-key tiles staged by ``cp.async`` into a ring;
+  :func:`last_launch` reports what its last launch chose.
 
 * :func:`swa_attention` — the wrapper: on CUDA tensors it launches the
   route's kernel or raises; on CPU tensors it runs the plain version.
@@ -32,7 +34,7 @@ import math
 import torch
 
 NEG_INF = -2.0 ** 30
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 128            # the reference's bq = bk: S must tile by min(128, S)
@@ -48,6 +50,23 @@ def _route(dtype, hd: int) -> str:
     if dtype == torch.bfloat16 and hd in TENSOR_CORE_HEAD_DIMS:
         return "wgmma"
     return "cuda_core"
+
+
+def last_launch() -> dict:
+    """What the last launch of the CUDA-core kernel chose
+    (``csrc/swa_attention.cu`` ``swa_launch_info``): grid (q blocks × CTAs
+    per batch-and-kv-head row), threads, shared memory a CTA, registers a
+    thread, CTAs and warps resident an SM, q positions a CTA (``bq``), query
+    heads a CTA, kv keys a tile (``bk``), ring stages, head_dim."""
+    from . import _build
+    out = (ctypes.c_int * 11)()
+    _build.library().swa_launch_info(out)
+    keys = ("grid_x", "grid_y", "threads", "smem_bytes", "registers",
+            "ctas_per_sm", "bq", "heads_per_cta", "bk", "stages",
+            "head_dim")
+    info = dict(zip(keys, out))
+    info["warps_per_sm"] = info["ctas_per_sm"] * info["threads"] // 32
+    return info
 
 
 def _check(q, k, v, window: int):
@@ -109,9 +128,9 @@ def swa_attention(q, k, v, *, window: int = 0, causal: bool = True,
 
     q: (B·H, S, hd); k, v: (B·KH, S, hd), float32 or bfloat16, with hd in
     :data:`HEAD_DIMS` and S a multiple of min(128, S).  On a CUDA tensor
-    this launches the kernel of :func:`_route` (contiguous inputs; 16-byte
-    aligned on the wgmma route, whose TMA loads need it) or raises; on a
-    CPU tensor it runs :func:`swa_attention_plain`."""
+    this launches the kernel of :func:`_route` (contiguous, 16-byte aligned
+    inputs: both kernels copy rows by 16-byte pieces, TMA or ``cp.async``)
+    or raises; on a CPU tensor it runs :func:`swa_attention_plain`."""
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return swa_attention_plain(q, k, v, window=window, causal=causal,
@@ -124,8 +143,8 @@ def swa_attention(q, k, v, *, window: int = 0, causal: bool = True,
         raise ValueError("the kernel takes contiguous q, k and v")
     BH, S, hd = q.shape
     route = _route(q.dtype, hd)
-    if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the wgmma route takes 16-byte aligned q, k and v")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the kernels take 16-byte aligned q, k and v")
     out = torch.empty_like(q)
 
     from . import _build

@@ -437,7 +437,17 @@ SWA_CASES = [
     (8, 2, 256, 64, 0, True, 0.0),            # G = 4
     (8, 1, 256, 128, 128, True, 50.0),        # G = 8
     (2, 2, 256, 128, 0, True, 50.0),          # hd 128 with softcap
-]
+    # the CUDA-core kernel's structure: 64 rows a CTA (query heads of one
+    # kv head x positions), 256-key tiles, a ring of k and v chunks
+    (4, 4, 128, 256, 65, True, 50.0),         # G = 1, S = 128: one tile
+    (8, 4, 64, 128, 63, True, 0.0),           # G = 2, S = 64
+    (3, 1, 384, 64, 200, True, 50.0),         # G = 3: a head a CTA; S = 1.5 tiles
+    (16, 1, 640, 32, 1, True, 0.0),           # G = 16: two CTAs of 8 heads
+    (8, 1, 640, 256, 300, True, 50.0),        # G = 8: one CTA of 8 heads
+    (4, 1, 384, 256, 300, False, 50.0),       # G = 4, band without causal
+    (6, 2, 256, 96, 100, True, 50.0),         # hd 96 (bf16: CUDA cores)
+] + [(4, 2, 256, hd, 200, True, cap)          # every head_dim, softcap on/off
+     for hd in (16, 32, 64, 96, 128, 256) for cap in (0.0, 50.0)]
 SWA_BF16_LIMIT = dict(rtol=1e-2, atol=1e-4)   # one bf16 ulp (phase 11's)
 
 
@@ -465,7 +475,8 @@ def test_cuda_swa_attention_matches_plain(cuda_f32, case, dtype):
 @pytest.mark.parametrize("dtype,hd,route", [
     ("bfloat16", 64, "wgmma"), ("bfloat16", 128, "wgmma"),
     ("bfloat16", 256, "wgmma"), ("bfloat16", 32, "cuda_core"),
-    ("float32", 64, "cuda_core"), ("float32", 256, "cuda_core")])
+    ("bfloat16", 96, "cuda_core"), ("float32", 64, "cuda_core"),
+    ("float32", 96, "cuda_core"), ("float32", 256, "cuda_core")])
 def test_cuda_swa_attention_takes_its_route(cuda_f32, dtype, hd, route):
     dt = getattr(torch, dtype)
     q, k, v = (torch.as_tensor(field(60 + i, (2, 128, hd)), device=cuda_f32)
@@ -475,6 +486,40 @@ def test_cuda_swa_attention_takes_its_route(cuda_f32, dtype, hd, route):
     torch.cuda.synchronize()
     assert {r: TS.launch_counts[r] - before[r] for r in before} == \
         {r: int(r == route) for r in before}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 16])
+def test_cuda_swa_core_launch_at_hd_256(cuda_f32, group):
+    """16 warps resident an SM at hd 256; 64 rows a CTA, up to 8 query
+    heads of one kv head (more split over CTAs)."""
+    q = torch.as_tensor(field(70, (2 * group, 256, 256)), device=cuda_f32)
+    k, v = (torch.as_tensor(field(71 + i, (2, 256, 256)), device=cuda_f32)
+            for i in range(2))
+    TS.swa_attention(q, k, v, window=100, softcap=50.0)
+    torch.cuda.synchronize()
+    info = TS.last_launch()
+    heads = min(group, 8)
+    assert info["head_dim"] == 256 and info["warps_per_sm"] >= 16
+    assert (info["heads_per_cta"], info["bq"]) == (heads, 64 // heads)
+    assert (info["grid_x"], info["grid_y"]) == (256 // (64 // heads),
+                                                2 * group // heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_swa_refuses_operands_not_16_byte_aligned(cuda_f32, dtype):
+    # both kernels copy rows by 16-byte pieces: a view one element in is
+    # refused before any launch
+    dt = getattr(torch, dtype)
+    base = torch.zeros(2 * 128 * 32 + 1, device=cuda_f32, dtype=dt)
+    q = base[1:].view(2, 128, 32)
+    k, v = (torch.zeros((2, 128, 32), device=cuda_f32, dtype=dt)
+            for _ in range(2))
+    before = dict(TS.launch_counts)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        TS.swa_attention(q, k, v, window=64)
+    assert TS.launch_counts == before
 
 
 @pytest.mark.cuda

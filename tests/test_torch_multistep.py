@@ -493,16 +493,47 @@ def test_auto_unroll_equals_reference(k, block):
             assert TE.auto_unroll(m, n, **kw) == want, (m, n, kw)
 
 
-def test_auto_resolves_by_the_ports_tile(plain_kernels):
+AUTO_SHAPES = [(64, 64), (100, 300), (256, 256), (1080, 1920), (8192, 8192)]
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("shape", AUTO_SHAPES)
+def test_auto_resolves_to_the_reference_T(plain_kernels, shape, k):
+    """``unroll="auto"`` with default arguments resolves to the reference's
+    T (its default block), whatever the port's frame layout block."""
+    want = JP.LoopOfStencilReduce(
+        f=j_heat, k=k, cond=lambda r: True, unroll="auto",
+        backend="pallas-multistep")._resolve_unroll(shape)
     loop = TP.LoopOfStencilReduce(
-        f=TR.heat_taps(), cond=lambda r: True, unroll="auto",
+        f=TR.heat_taps(), k=k, cond=lambda r: True, unroll="auto",
         backend="cuda-multistep", device="cpu")
-    got = loop._resolve_unroll((1000, 1300))
-    assert got.unroll == TE.auto_unroll(1000, 1300, block=(32, 32)) == 3
+    assert loop._resolve_unroll(shape).unroll == want.unroll
+    # a block the caller gives is the one T is counted on, as there
+    want = dataclass_replace(want, unroll="auto", block=(32, 32))
+    assert dataclass_replace(loop, block=(32, 32))._resolve_unroll(
+        shape).unroll == want._resolve_unroll(shape).unroll
     single = dataclass_replace(loop, backend="cuda")
-    assert single._resolve_unroll((1000, 1300)).unroll == 1
+    assert single._resolve_unroll(shape).unroll == 1
     with pytest.raises(ValueError, match="unroll=30 is infeasible"):
         dataclass_replace(loop, unroll=30)._resolve_unroll((24, 24))
+
+
+def test_auto_jacobi_solve_ends_with_the_reference_iters(plain_kernels):
+    """64x64 Helmholtz to tol 1e-5 with ``unroll="auto"``: the reference's
+    multistep kernel (interpret mode) and the port's backend pick the same
+    T, so they stop at the same check with the same max|du| (within the
+    multiply-add contraction of the reference's jitted loop)."""
+    rng = np.random.default_rng(16)
+    u0 = np.zeros((64, 64), np.float32)
+    fxy = rng.normal(size=(64, 64)).astype(np.float32)
+    kw = dict(alpha=2.0, dx=0.2, tol=1e-5, max_iters=1000, unroll="auto")
+    ju, jd, ji = JO.jacobi_solve(jnp.asarray(u0), jnp.asarray(fxy),
+                                 backend="pallas-multistep", **kw)
+    tu, td, ti = TO.jacobi_solve(u0, fxy, backend="cuda-multistep",
+                                 device="cpu", **kw)
+    assert int(ti) == int(ji)
+    assert abs(float(td) - float(jd)) <= 1e-7
+    np.testing.assert_allclose(np.asarray(tu), np.asarray(ju), atol=1e-5)
 
 
 def dataclass_replace(loop, **kw):

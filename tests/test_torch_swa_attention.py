@@ -67,6 +67,16 @@ def test_plain_matches_jax_kernel_gqa_softcap_hd16(case):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
 
 
+def test_plain_matches_jax_kernel_hd96():
+    # phi-3-vision's head_dim: f32, GQA 4/2, a window that is no tile
+    # multiple, softcap 50
+    q, k, v = qkv(7, 4, 2, 256, 96)
+    want = jax_swa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   window=100, softcap=50.0, interpret=True)
+    got = port(q, k, v, window=100, softcap=50.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
 def test_plain_matches_jax_kernel_bf16():
     q, k, v = qkv(2, 2, 2, 256, 64)
     bf = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
@@ -118,7 +128,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", TS.HEAD_DIMS)
 def test_route_is_chosen_by_dtype_and_head_dim(dtype, hd):
-    want = "wgmma" if dtype == torch.bfloat16 and hd >= 64 else "cuda_core"
+    want = ("wgmma" if dtype == torch.bfloat16 and hd in (64, 128, 256)
+            else "cuda_core")
     assert TS._route(dtype, hd) == want
 
 
