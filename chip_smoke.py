@@ -8,8 +8,9 @@ sliding-window flash attention: bf16 at hd 64/128/256 on the tensor
 cores, the rest on CUDA cores), holds each against its plain
 PyTorch version, and drives the port's main paths — the persistent-frame
 Loop-of-stencil-reduce on "cuda" and "cuda-multistep", the lane farm
-``farm_run``, the paper's §4 apps, and the gemma2-9b scoring forward and
-greedy serving — on one CUDA card at full size:
+``farm_run``, the paper's §4 apps, the streaming FarmEngine on the §4.3
+restoration stream, and the gemma2-9b scoring forward and greedy serving
+— on one CUDA card at full size:
 
   0. the card (nvidia-smi), torch/CUDA versions, kernel build time,
      registers and spills of the stencil kernel's Helmholtz, Sobel and
@@ -33,6 +34,20 @@ greedy serving — on one CUDA card at full size:
  10. farm_run of 8 full-HD restoration lanes with different noise levels,
      on "cuda" and "cuda-multistep" (T=3), against solo runs and "torch";
      ms a frame of wall and of the device's busy time (profiler);
+ 14. the paper's §4.3 stream through the port's FarmEngine: 32 full-HD
+     frames (noise 2%..60%), AMF detection as prep, restoration on 8 lane
+     slots, segment 16 — round mode, continuous classic and chained on
+     "cuda", chained on "cuda-multistep" (unroll="auto"), chained under a
+     seeded FaultPlan (max_attempts 2), and chained with recovery, killed
+     near the middle and resumed on 4 lanes; every index once in each
+     run, iters / grids / reduces equal across the runs (bit for bit) and
+     to solo runs; (c), (d) at its T and (e) against their plain twins on
+     "torch" (the same prepped items and streams: statuses and iters
+     equal, grids within TOL_GRID, (e)'s emission sequence equal; a
+     planted zero-boundary fault fails that gate); the faults' statuses
+     and attempts, each victim lane's slot retired, less waste than round
+     mode, the slot buffers never re-allocated, one launch a body step; ms a frame (wall, and device busy for round and chained),
+     lane steps, host bytes and reads, the recovery counters;
   5. per-kernel timings at the main path's shapes, each with its bound and
      the stencil kernel's launch choices (CTA tile, window slots, CTAs an
      SM, shared memory, registers); at 1080x1920 also the profiler's
@@ -71,12 +86,12 @@ greedy serving — on one CUDA card at full size:
      window slots (Helmholtz at T = 1, 4, 8; AMF k=3 and restore at
      1080x1920), the wrapper's choice marked.
 
-Every phase runs, at the sizes above, in the order listed.  Phases 2-4, 9
-and 10 are the stencil main path: the kernel launch counts are zeroed just
-before phase 2 and read just after phase 10 (the single-step launches also
-by shape, the multistep launches by T).  Phases 12-13 are the LM main
-path: the counts (the attention's by route) are zeroed just before phase
-12 and read just after phase 13; the bf16 layers must take the wgmma
+Every phase runs, at the sizes above, in the order listed.  Phases 2-4, 9,
+10 and 14 are the stencil main path: the kernel launch counts are zeroed
+just before phase 2 and read just after phase 14 (the single-step
+launches also by shape, the multistep launches by T).  Phases 12-13 are
+the LM main path: the counts (the attention's by route) are zeroed just
+before phase 12 and read just after phase 13; the bf16 layers must take the wgmma
 route and the f32 ones the CUDA-core route, and each route is its own
 entry of the ``kernels`` line.  Every phase's failure propagates: the
 exit code is non-zero and the final ok line is not printed.  Without a
@@ -1133,6 +1148,396 @@ def phase10(gen):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the §4.3 restoration stream through the streaming FarmEngine
+# ---------------------------------------------------------------------------
+
+STREAM_SHAPE = (1080, 1920)
+STREAM_FRAMES, STREAM_LANES, STREAM_SEGMENT = 32, 8, 16
+STREAM_NOISE = (0.02, 0.6)     # salt-and-pepper density, first to last frame
+
+
+def stream_source(seed, shape, frames):
+    """The stream: ``synth_video`` frames with noise from 2% to 60%, made
+    on the host with numpy from ``seed`` (re-iterable, for the resume)."""
+    import numpy as np
+    from repro_torch.examples.video_restoration import synth_video
+    levels = np.linspace(*STREAM_NOISE, frames)
+    pairs = list(synth_video(shape, frames, levels, seed=seed))
+    return [c for c, _ in pairs], [n for _, n in pairs], levels
+
+
+def phase14(seed, shape=STREAM_SHAPE, frames=STREAM_FRAMES,
+            lanes=STREAM_LANES, segment=STREAM_SEGMENT, device="cuda"):
+    """The §4.3 stream, pipe(read, detect, ofarm(restore), write), through
+    the port's FarmEngine: AMF detection (kmax 3) as ``prep`` on the
+    kernel, restoration on 8 lane slots, segment 16.  Runs (a) round mode,
+    (b) continuous classic, (c) continuous chained, all on "cuda"; (d)
+    chained on "cuda-multistep" with unroll="auto"; (e) (c) under a seeded
+    FaultPlan with max_attempts=2; (f) (c) with recovery, preempted near
+    the middle and resumed by a fresh engine with 4 lanes.  (c), (d) and
+    (e) are held against their plain twins: the same prepped items through
+    the same streams with the restoration on "torch" (at (d)'s T for (d)),
+    and a planted fault shows the gate's power.  Every check of the phase
+    raises on failure."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core.reduce import Sentinel
+    from repro_torch.core.streaming import FarmEngine
+    from repro_torch.examples.video_restoration import (detector, psnr,
+                                                        restore_loop)
+    from repro_torch.kernels import stencil2d as S
+    from repro_torch.resilience import (FaultPlan, PreemptionError,
+                                        RecoveryConfig)
+
+    ms0 = S.launch_counts["multistep_sweep"]
+    cleans, noisy, levels = stream_source(seed, shape, frames)
+    detect = detector("cuda", device)
+    prep_launches = [0]
+
+    def prep(frame):
+        before = S.launch_counts["stencil_sweep"]
+        out = detect(frame)
+        prep_launches[0] += S.launch_counts["stencil_sweep"] - before
+        return out
+
+    sentinel = Sentinel(nan=True)       # a NaN reduce poisons its lane
+
+    def engine(backend="cuda", unroll=1, n=lanes, plan=None, prep=prep,
+               **kw):
+        loop = restore_loop(backend, device, unroll=unroll,
+                            sentinel=sentinel)
+        if plan is not None:
+            loop = plan.instrument(loop)
+        return FarmEngine(loop, lanes=n, prep=prep, segment=segment,
+                          device=device, **kw)
+
+    def run(eng, continuous=True, source=None, **kw):
+        got = []
+        secs = wall(lambda: eng.run(noisy if source is None else source,
+                                    got.append, continuous=continuous,
+                                    **kw))[1]
+        if sorted(int(r.index) if continuous else i
+                  for i, r in enumerate(got)) != list(range(frames)):
+            raise AssertionError("phase14: a stream index was not emitted "
+                                 "exactly once")
+        # (the plain "torch" carry is replaced each step, not ping-ponged)
+        if eng.loop.backend != "torch" and \
+                eng.buffer_pointers() != eng.bound_pointers:
+            raise AssertionError("phase14: a slot buffer was re-allocated "
+                                 "during the stream")
+        return got, secs
+
+    def by_index(got):
+        return {int(r.index): r for r in got}
+
+    # warm-up, one whole stream in each mode: the kernels' first launches
+    # at these shapes and the allocator's first blocks for the uploads
+    for mode in (False, True):
+        FarmEngine(restore_loop("cuda", device), lanes=lanes, prep=detect,
+                   segment=segment, device=device).run(
+            noisy, lambda r: None, continuous=mode)
+
+    rows = {}
+    eng_a = engine()
+    got_a, t_a = run(eng_a, continuous=False)
+    res = {"a": {i: r for i, r in enumerate(got_a)}}
+    eng_b = engine(chained=False)
+    got_b, t_b = run(eng_b)
+    res["b"] = by_index(got_b)
+    eng_c = engine()
+    before, prep_launches[0] = S.launch_counts["stencil_sweep"], 0
+    got_c, t_c = run(eng_c)
+    detect_launches = prep_launches[0]
+    restore_launches = (S.launch_counts["stencil_sweep"] - before
+                        - detect_launches)
+    res["c"] = by_index(got_c)
+    eng_d = engine("cuda-multistep", unroll="auto")
+    got_d, t_d = run(eng_d)
+    T = eng_d._loop.unroll
+    res["d"] = by_index(got_d)
+
+    # each frame's prepped item (detection on the kernel), once, on the
+    # card: the solo runs and the plain twins start from these
+    prepped = []
+    for x in noisy:
+        a0, envs = detect(torch.as_tensor(x, device=device))
+        prepped.append((a0, *envs))
+
+    # solo runs of the same prepped items, on each kernel
+    solo = {}
+    for backend, unroll in (("cuda", 1), ("cuda-multistep", T)):
+        loop = restore_loop(backend, device, unroll=unroll,
+                            sentinel=sentinel)
+        solo[backend] = []
+        for a0, *envs in prepped:
+            r = loop.run(a0, env=tuple(envs))
+            solo[backend].append((int(r.iters), r.a.cpu()))
+
+    # (e): (c) under a seeded fault plan
+    plan = FaultPlan.seeded(seed, lanes=lanes, n_nan=1, n_stall=1,
+                            n_corrupt=2, n_items=frames)
+    eng_e = engine(plan=plan, max_attempts=2)
+    got_e, t_e = run(eng_e, source=plan.corrupt_stream(noisy))
+    res["e"] = by_index(got_e)
+
+    # the plain twins of (c), (d) and (e): the prepped items as tuple
+    # items (the default prep splits them) through the same streams, the
+    # restoration on "torch" (no kernel launch), at (d)'s T for (d)
+    plain, t_plain, eng_plain = {}, {}, {}
+    for key, kw, src in (
+            ("c", {}, prepped), ("d", dict(unroll=T), prepped),
+            ("e", dict(plan=plan, max_attempts=2),
+             plan.corrupt_stream(prepped))):
+        eng_plain[key] = engine("torch", prep=None, **kw)
+        plain[key], t_plain[key] = run(eng_plain[key], source=src)
+
+    # the gate's power: a planted ghost-ring fault (the zero boundary in
+    # place of reflect) on the stream's noisiest item, run solo on
+    # "torch" at each T, must fail the gate the kernels pass
+    j = frames - 1
+    planted = {}
+    for key, unroll in (("c", 1), ("d", T)):
+        bad_loop = dataclasses.replace(
+            restore_loop("torch", device, unroll=unroll, sentinel=sentinel),
+            boundary="zero")
+        a0, *envs = prepped[j]
+        f = bad_loop.run(a0, env=tuple(envs))
+        planted[key] = (int(f.iters), max_err(res[key][j].a, f.a.cpu()))
+
+    # (f): (c) with recovery, killed near the middle, resumed on 4 lanes
+    tmp = tempfile.mkdtemp(prefix="phase14_recovery_")
+    try:
+        rec = RecoveryConfig(tmp, snapshot_every=2)
+        kill_at = max(2, eng_c.stats["segments"] // 2)
+        eng_f0 = engine()
+        got_f0 = []
+        t_f0 = time.perf_counter()
+        try:
+            eng_f0.run(noisy, got_f0.append, continuous=True, recovery=rec,
+                       on_segment=FaultPlan(
+                           lanes=lanes, preempt_at_segment=kill_at
+                       ).preempt_hook(mode="raise"))
+            raise AssertionError("phase14: the seeded preemption never "
+                                 "fired")
+        except PreemptionError:
+            t_f0 = time.perf_counter() - t_f0
+        eng_f = engine(n=4)
+        got_f, t_f = run(eng_f, recovery=rec, resume=True)
+        res["f"] = by_index(got_f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the spread of (a) and (c): fresh engines in turns, a c c a
+    spread = {"a": [], "c": []}
+    for key in "acca":
+        secs = wall(lambda: engine().run(noisy, lambda r: None,
+                                         continuous=key == "c"))[1]
+        spread[key].append(secs * 1e3 / frames)
+
+    # device-busy time of (a) and (c), each in a run of its own
+    busy = {}
+    for key, continuous in (("a", False), ("c", True)):
+        secs, dev_s, _ = profiled(lambda: engine().run(
+            noisy, lambda r: None, continuous=continuous))
+        busy[key] = (secs, dev_s)
+
+    # --- checks ------------------------------------------------------------
+    fails = []
+    iters = {k: [int(res[k][i].iters) for i in range(frames)]
+             for k in "abcf"}
+    solo_iters = [it for it, _ in solo["cuda"]]
+    if not (iters["a"] == iters["b"] == iters["c"] == iters["f"]
+            == solo_iters):
+        fails.append(f"iters differ: {iters} solo {solo_iters}")
+    if len(set(solo_iters)) < 2:
+        fails.append("the stream's trip counts do not spread")
+    err_solo = 0.0
+    for i in range(frames):
+        c = res["c"][i]
+        for k in "abf":
+            if not (torch.equal(res[k][i].a, c.a)
+                    and torch.equal(res[k][i].reduced, c.reduced)):
+                fails.append(f"item {i}: run ({k}) differs from (c)")
+        err_solo = max(err_solo, max_err(c.a, solo["cuda"][i][1]))
+    if err_solo > TOL_GRID:
+        fails.append(f"(c) vs solo runs: max|d| {err_solo!r} > {TOL_GRID}")
+    if [int(r.index) for r in got_b] != [int(r.index) for r in got_c]:
+        fails.append("(b) and (c) emit in different orders")
+    iters_d = [int(res["d"][i].iters) for i in range(frames)]
+    err_d = max(max_err(res["d"][i].a, solo["cuda-multistep"][i][1])
+                for i in range(frames))
+    if iters_d != [it for it, _ in solo["cuda-multistep"]] \
+            or any(it % T for it in iters_d) or err_d > TOL_GRID:
+        fails.append(f"(d) at T={T}: iters {iters_d} vs solo, max|d| "
+                     f"{err_d!r}")
+    # kernel against plain: the same statuses and iters, item for item, and
+    # grids and reduces within TOL_GRID; (e) and its twin emit the same
+    # (index, status, attempts, iters) sequence
+    def seq(got):
+        return [(int(r.index), r.status, int(r.attempts), int(r.iters))
+                for r in got]
+    err_plain = {}
+    for key in "cde":
+        p = by_index(plain[key])
+        err_plain[key] = 0.0
+        for i in range(frames):
+            k, q = res[key][i], p[i]
+            if (k.status, int(k.iters)) != (q.status, int(q.iters)):
+                fails.append(f"({key}) item {i}: {k.status}/{int(k.iters)} "
+                             f"on the kernel, {q.status}/{int(q.iters)} "
+                             "on torch")
+            elif k.a is not None:
+                err_plain[key] = max(err_plain[key], max_err(k.a, q.a),
+                                     max_err(k.reduced, q.reduced))
+        if err_plain[key] > TOL_GRID:
+            fails.append(f"({key}) vs its plain twin: max|d| "
+                         f"{err_plain[key]!r} > {TOL_GRID}")
+    fault_keys = ("retries", "rejected", "quarantined_slots", "refills",
+                  "segments")
+    if seq(got_e) != seq(plain["e"]) or \
+            [eng_e.stats[k] for k in fault_keys] != \
+            [eng_plain["e"].stats[k] for k in fault_keys]:
+        fails.append("(e) and its plain twin emit different sequences or "
+                     f"counts ({fault_keys})")
+    for key, (it_f, e_f) in planted.items():
+        if it_f == int(res[key][j].iters) and e_f <= TOL_GRID:
+            fails.append(f"({key}): the planted fault passes the gate "
+                         f"(max|d| {e_f!r})")
+    # (e): the plan's corrupt items are rejected at the door; a first
+    # attempt that failed was retried once; an ok item equals (c) bit for
+    # bit; a non-ok item used both attempts and is on the dead-letter list
+    # (a fault's status, or the status (c) gave the item itself)
+    bad = set(plan.corrupt_indices)
+    for i in range(frames):
+        e, c = res["e"][i], res["c"][i]
+        if i in bad:
+            ok = (e.status, e.attempts, e.a) == ("rejected", 0, None)
+        elif e.status == "ok":
+            ok = (c.status == "ok" and e.attempts in (1, 2)
+                  and int(e.iters) == int(c.iters)
+                  and torch.equal(e.a, c.a)
+                  and torch.equal(e.reduced, c.reduced))
+        else:
+            ok = e.attempts == 2 and (
+                e.status in ("poisoned", "timed_out")
+                or e.status == c.status)
+        if not ok:
+            fails.append(f"(e) item {i}: {e.status}/{e.attempts} vs (c) "
+                         f"{c.status}")
+    dead = sorted(int(r.index) for r in eng_e.dead_letter)
+    if dead != sorted(i for i in range(frames)
+                      if res["e"][i].status != "ok"):
+        fails.append(f"(e) dead letters {dead}")
+    # the plan fired: each victim lane's slot retired, and more retries
+    # than the fault-free stream's own non-ok items would cause
+    victims = {lane for lane, _ in (*plan.nan_events, *plan.stall_events)}
+    own_fails = sum(1 for i in range(frames)
+                    if i not in bad and res["c"][i].status != "ok")
+    if eng_e.stats["retries"] <= own_fails \
+            or eng_e.stats["rejected"] != len(bad) \
+            or eng_e.stats["quarantined_slots"] != len(victims):
+        fails.append(f"(e) retries {eng_e.stats['retries']} (fault-free "
+                     f"{own_fails}) rejected {eng_e.stats['rejected']} "
+                     f"quarantined slots "
+                     f"{eng_e.stats['quarantined_slots']} (victim lanes "
+                     f"{sorted(victims)})")
+    if not eng_c.wasted_lane_steps < eng_a.wasted_lane_steps:
+        fails.append(f"(c) wastes {eng_c.wasted_lane_steps} lane steps, "
+                     f"(a) {eng_a.wasted_lane_steps}")
+    body_steps = eng_c.lane_steps // lanes
+    if restore_launches != body_steps:
+        fails.append(f"(c): {restore_launches} restoration launches for "
+                     f"{body_steps} body steps")
+    if eng_f.stats["replayed_items"] != len(got_f0) \
+            or eng_f.stats["recovered_occupants"] == 0:
+        fails.append(f"(f) replayed {eng_f.stats['replayed_items']} of "
+                     f"{len(got_f0)}, recovered "
+                     f"{eng_f.stats['recovered_occupants']}")
+
+    # --- readings ----------------------------------------------------------
+    engines = {"a": (eng_a, t_a), "b": (eng_b, t_b), "c": (eng_c, t_c),
+               "d": (eng_d, t_d), "e": (eng_e, t_e), "f": (eng_f, t_f)}
+    names = {"a": "round", "b": "classic", "c": "chained",
+             "d": f"chained cuda-multistep T={T}", "e": "chained + faults",
+             "f": "chained with recovery, the resumed run on 4 lanes"}
+    ps_in = float(np.mean([psnr(noisy[i], cleans[i])
+                           for i in range(frames)]))
+    ps_out = float(np.mean([psnr(res["c"][i].a.numpy(), cleans[i])
+                            for i in range(frames)]))
+    log(f"[phase14] stream: {frames} x {shape[0]}x{shape[1]} f32, noise "
+        f"{levels[0]:.2f}..{levels[-1]:.2f}, {lanes} lanes, segment "
+        f"{segment}; iters {solo_iters}; PSNR {ps_in:.2f} -> {ps_out:.2f} "
+        f"dB; (d) resolved T={T}, iters {iters_d}")
+    for key, (eng, secs) in engines.items():
+        st = eng.stats
+        seg = max(st["segments"], 1)
+        log(f"[phase14] ({key}) {names[key]}: wall {secs * 1e3:.1f} ms "
+            f"({secs * 1e3 / frames:.3f} ms/frame); rounds {st['rounds']} "
+            f"segments {st['segments']} refills {st['refills']}; lane "
+            f"steps {eng.lane_steps} wasted {eng.wasted_lane_steps} "
+            f"quarantined {eng.quarantined_lane_steps}; h2d "
+            f"{st['h2d_bytes'] / frames:.0f} B/item d2h "
+            f"{st['d2h_bytes'] / frames:.0f} B/item; host reads "
+            f"{st['host_reads']} ({st['host_reads'] / seg:.2f} a segment)")
+    log(f"[phase14] (c) stencil_sweep launches: {restore_launches} "
+        f"restoration (body steps {body_steps}, each covering all "
+        f"{lanes} lanes) + {detect_launches} detection; (b) vs (c) order "
+        f"equal; max|d| (c) vs solo {err_solo!r}, (d) vs its solo "
+        f"{err_d!r}")
+    log(f"[phase14] (e) plan {plan}: statuses "
+        f"{[res['e'][i].status[:4] for i in range(frames)]} attempts "
+        f"{[res['e'][i].attempts for i in range(frames)]}; retries "
+        f"{eng_e.stats['retries']} rejected {eng_e.stats['rejected']} "
+        f"quarantined slots {eng_e.stats['quarantined_slots']} dead "
+        f"letters {dead}")
+    log(f"[phase14] kernel vs plain twin (restoration on torch, the same "
+        f"prepped items and streams): max|d| (c) {err_plain['c']!r}, (d) "
+        f"T={T} {err_plain['d']!r}, (e) {err_plain['e']!r} (limit "
+        f"{TOL_GRID}); statuses and iters equal item for item, (e)'s "
+        f"emission sequence equal; twin wall "
+        f"{', '.join(f'({k}) {t * 1e3:.1f} ms' for k, t in t_plain.items())}"
+        f"; planted fault (zero boundary, item {j}): "
+        + ", ".join(f"({k}) iters {it} vs {int(res[k][j].iters)}, max|d| "
+                    f"{e!r}" for k, (it, e) in planted.items())
+        + " -- fails the gate")
+    log(f"[phase14] (a) and (c) again, fresh engines in turns a c c a: "
+        f"round {[round(x, 3) for x in spread['a']]} ms/frame, chained "
+        f"{[round(x, 3) for x in spread['c']]} ms/frame")
+    st = eng_f.stats
+    log(f"[phase14] (f) killed at segment {kill_at} after "
+        f"{len(got_f0)} emissions in {t_f0 * 1e3:.1f} ms "
+        f"({eng_f0.stats['snapshots']} snapshots); "
+        f"resumed on 4 lanes: replayed {st['replayed_items']} recovered "
+        f"occupants {st['recovered_occupants']} snapshots "
+        f"{st['snapshots']} recovery {st['recovery_seconds'] * 1e3:.1f} ms, "
+        f"segments {st['segments']}")
+    for key, (secs, dev_s) in busy.items():
+        log(f"[phase14] ({key}) {names[key]} under the profiler: wall "
+            f"{secs * 1e3 / frames:.3f} ms/frame, device busy "
+            f"{dev_s * 1e3 / frames:.3f} ms/frame (idle share "
+            f"{1 - dev_s / secs:.3f})")
+    if fails:
+        raise AssertionError("phase14: " + "; ".join(fails))
+    rows = {key: dict(ms_frame=secs * 1e3 / frames,
+                      segments=eng.stats["segments"],
+                      wasted=eng.wasted_lane_steps,
+                      lane_steps=eng.lane_steps)
+            for key, (eng, secs) in engines.items()}
+    for key, times in spread.items():
+        rows[key]["ms_frame_again"] = times
+    for key, (secs, dev_s) in busy.items():
+        rows[key]["device_ms_frame"] = dev_s * 1e3 / frames
+    rows["T"] = T
+    rows["err_plain"] = err_plain
+    rows["multistep_launches"] = S.launch_counts["multistep_sweep"] - ms0
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # the LM slice: sliding-window attention, gemma2-9b forward and serving
 # ---------------------------------------------------------------------------
 
@@ -1699,7 +2104,7 @@ def main(argv=None) -> int:
     rate = mem_rate(card.split(",")[0])
     phase1(gen)
     err8, err8_bf16 = phase8(gen)
-    zero_counts()                                  # main path: 2-4, 9, 10
+    zero_counts()                              # main path: 2-4, 9, 10, 14
     by_phase = {}
 
     def counted(phase, fn, *a):
@@ -1713,18 +2118,24 @@ def main(argv=None) -> int:
     err4 = counted(4, phase4, gen)
     err9, rows9 = counted(9, phase9, gen, SIZE, ms_loop)
     rows10 = counted(10, phase10, gen)
+    rows14 = counted(14, phase14, args.seed)
     launches = dict(S.launch_counts)
-    log(f"[main] launches on the main path (phases 2-4, 9, 10): {launches}")
+    log(f"[main] launches on the main path (phases 2-4, 9, 10, 14): "
+        f"{launches}")
     ss_by_shape = {
         f"Helmholtz {SIZE}x{SIZE} (phases 2, 3, 9)":
             by_phase[2] + by_phase[3] + by_phase[9],
         "1080x1920: AMF k=3, restore, Sobel (phase 4)": by_phase[4],
-        "8 x 1080x1920 restore (phase 10)": by_phase[10]}
+        "8 x 1080x1920 restore (phase 10)": by_phase[10],
+        f"{STREAM_FRAMES} x 1080x1920 stream: AMF k=3 prep, restore on "
+        f"{STREAM_LANES} lanes (phase 14)": by_phase[14]}
     log(f"[main] stencil_sweep launches by shape: {ss_by_shape}")
     ms_by_T = {f"T={T} (phase 9, Helmholtz {SIZE}x{SIZE})": r["launches"]
                for T, r in rows9.items()}
     ms_by_T["T=3 (phase 10, 8 x 1080x1920 restoration)"] = \
         rows10["cuda-multistep"]["launches"]
+    ms_by_T[f"T={rows14['T']} (phase 14, {STREAM_FRAMES} x 1080x1920 "
+            f"stream)"] = rows14["multistep_launches"]
     log(f"[main] multistep_sweep launches by T: {ms_by_T}")
     for name, count in launches.items():
         if count == 0:
@@ -1794,7 +2205,9 @@ def main(argv=None) -> int:
         "entry": "src/repro_torch/kernels/csrc/stencil2d.cu",
         "replaces": "src/repro/kernels/stencil2d.py:138",
         "launches": launches["stencil_sweep"],
-        "max_abs_err": max([err2, err3, err4, rows10["cuda"]["err"]]
+        "max_abs_err": max([err2, err3, err4, rows10["cuda"]["err"],
+                            rows14["err_plain"]["c"],
+                            rows14["err_plain"]["e"]]
                            + [r["err"] for r in rows5s.values()]),
         "ms": helm5["ms"],
         "plain_ms": helm5["plain_ms"],
@@ -1812,8 +2225,8 @@ def main(argv=None) -> int:
                           "launch": launch_of(r["info"])}
                      for label, r in rows5s.items()},
         "bf16_max_abs_err": err8_bf16,
-        "phases": {"launched": [2, 3, 4, 9, 10],
-                   "held_against_plain": [1, 2, 3, 4, 5, 8, 10]},
+        "phases": {"launched": [2, 3, 4, 9, 10, 14],
+                   "held_against_plain": [1, 2, 3, 4, 5, 8, 10, 14]},
     }, {
         "name": "multistep_sweep",
         "route": "cuda",
@@ -1821,7 +2234,8 @@ def main(argv=None) -> int:
         "entry": "src/repro_torch/kernels/csrc/multistep.cu",
         "replaces": "src/repro/kernels/multistep.py:101",
         "launches": launches["multistep_sweep"],
-        "max_abs_err": max([err8, err9, rows10["cuda-multistep"]["err"]]
+        "max_abs_err": max([err8, err9, rows10["cuda-multistep"]["err"],
+                            rows14["err_plain"]["d"]]
                            + [r["err"] for r in rows5.values()]),
         "ms": rows5[4]["ms"],
         "plain_ms": rows5[4]["plain_ms"],
@@ -1836,8 +2250,8 @@ def main(argv=None) -> int:
                      "launch": launch_of(r["info"])}
                  for T, r in rows5.items()},
         "bf16_max_abs_err": err8_bf16,
-        "phases": {"launched": [9, 10],
-                   "held_against_plain": [5, 8, 9, 10]},
+        "phases": {"launched": [9, 10, 14],
+                   "held_against_plain": [5, 8, 9, 10, 14]},
     }, swa_wgmma, swa_core]}))
     phase6(gen, SIZE)
     phase7(gen, SIZE, rate)

@@ -35,10 +35,12 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..device import BACKENDS, resolve_backend, resolve_device, to_device
-from .frames import (DEFAULT_BLOCK, FrameSpec, LaneFrameSpec, ceil_mul,
-                     frame_env, frame_spec, lane_env_frames, make_frame,
-                     make_lane_frames, refill_lane_env, refill_lane_frames,
-                     refresh_frame, unframe)
+from .frames import (DEFAULT_BLOCK, FrameSpec, LaneFrameSpec, alloc_lane_env,
+                     alloc_lane_frames, ceil_mul, frame_env, frame_spec,
+                     make_frame, refill_lane_env, refill_lane_frames,
+                     refill_lanes_env_masked, refill_lanes_masked,
+                     refill_slot_env, refill_slot_frame, refresh_frame,
+                     unframe)
 from .semantics import Boundary
 
 __all__ = ["BACKENDS", "StencilEngine", "auto_unroll",
@@ -195,8 +197,10 @@ class StencilEngine:
         The reduce covers the final sweep (measure against the second to
         last iterate); on ``"cuda"`` the earlier sweeps skip the fold.  The
         returned frame's ghost ring is refreshed — a valid input for the
-        next call.  ``live`` (lane stacks) marks the lanes to sweep; the
-        others come back unchanged.
+        next call.  A lane stack of frames is swept by each launch as a
+        whole (``blockIdx.z`` is the lane) and reduces to a (lanes,)
+        vector; ``live`` marks the lanes to sweep, the others come back
+        unchanged.
         """
         from ..kernels.multistep import stencil2d_multistep_framed
         from ..kernels.stencil2d import stencil2d_fused_framed
@@ -219,8 +223,9 @@ class StencilEngine:
         return frame, red
 
     def unframe(self, frame: torch.Tensor, spec: FrameSpec) -> torch.Tensor:
-        """The domain as a tensor of its own — once, after convergence (a
-        copy: the frame buffers are overwritten by later sweeps)."""
+        """The domain (each lane's, for a stack) as a tensor of its own —
+        once, after convergence (a copy: the frame buffers are overwritten
+        by later sweeps)."""
         return unframe(frame, spec).clone()
 
     # -- the lane axis (1:1 farm) ----------------------------------------
@@ -228,20 +233,35 @@ class StencilEngine:
         """Frame geometry for ``lanes`` independent (m, n) items."""
         return LaneFrameSpec(lanes=lanes, frame=self._spec(m, n))
 
-    def prepare_lanes(self, a: torch.Tensor, env=()):
-        """Stage a (lanes, m, n) stack (and (lanes, m, n) env fields) into
-        lane frames, and allocate the second lane buffer and the per-lane
-        reduce scratch — once."""
+    def alloc_lanes(self, lspec: LaneFrameSpec, dtype, env_dtypes=(),
+                    device=None):
+        """Allocate the lane slots (zeros) and one env slot stack per dtype
+        in ``env_dtypes``, with the second lane buffer and the per-lane
+        reduce scratch — once.  Items enter the slots in place, through the
+        refills below.  Returns ``(frames, env_frames)``."""
         from ..kernels.stencil2d import alloc_scratch
 
+        frames = alloc_lane_frames(lspec, dtype, device)
+        env_frames = tuple(alloc_lane_env(lspec, d, self._multistep, device)
+                           for d in env_dtypes)
+        self._buffers = (frames, torch.zeros_like(frames))
+        self._scratch = alloc_scratch(lspec.frame, device, lspec.lanes)
+        return frames, env_frames
+
+    def buffer_pointers(self) -> tuple:
+        """``data_ptr()`` of the two frame buffers the sweeps ping-pong
+        between (unchanged for the engine's life once allocated)."""
+        return tuple(b.data_ptr() for b in self._buffers)
+
+    def prepare_lanes(self, a: torch.Tensor, env=()):
+        """Stage a (lanes, m, n) stack (and (lanes, m, n) env fields) into
+        lane frames (:meth:`alloc_lanes`, then :meth:`refill_lanes`)."""
         lanes, m, n = a.shape
         lspec = self.lane_spec(lanes, m, n)
-        frames = make_lane_frames(a, lspec.frame, self.boundary)
-        env_frames = tuple(
-            lane_env_frames(e, lspec.frame, self.boundary,
-                            halo=self._multistep) for e in env)
-        self._buffers = (frames, torch.zeros_like(frames))
-        self._scratch = alloc_scratch(lspec.frame, a.device, lanes)
+        frames, env_frames = self.alloc_lanes(
+            lspec, a.dtype, tuple(e.dtype for e in env), a.device)
+        frames, env_frames = self.refill_lanes(frames, env_frames, a, env,
+                                               lspec)
         return frames, env_frames, lspec
 
     def refill_lanes(self, frames, env_frames, interiors, env_new,
@@ -256,16 +276,26 @@ class StencilEngine:
             for ef, e in zip(env_frames, env_new))
         return frames, env_frames
 
-    def sweeps_lanes(self, frames, env_frames, lspec: LaneFrameSpec,
-                     live: Optional[torch.Tensor] = None):
-        """``unroll`` sweeps on every live lane; returns (frames',
-        (lanes,) reduced).  Each launch covers the whole stack
-        (``blockIdx.z`` is the lane), not a Python loop over lanes."""
-        return self.sweeps(frames, env_frames, lspec.frame, live)
+    def refill_slot(self, frames, env_frames, idx: int, interior, env_new,
+                    lspec: LaneFrameSpec):
+        """Refill ONE lane slot ``idx`` (and its env slots) in place."""
+        refill_slot_frame(frames, interior, idx, lspec.frame, self.boundary)
+        for ef, e in zip(env_frames, env_new):
+            refill_slot_env(ef, e, idx, lspec.frame, self.boundary,
+                            halo=self._multistep)
+        return frames, env_frames
 
-    def unframe_lanes(self, frames, lspec: LaneFrameSpec) -> torch.Tensor:
-        """Every lane's domain, as a tensor of its own."""
-        return unframe(frames, lspec.frame).clone()
+    def refill_masked(self, frames, env_frames, take, interiors, env_new,
+                      lspec: LaneFrameSpec):
+        """Refill the slots where the (lanes,) bool ``take`` is set from
+        the (lanes, m, n) ``interiors`` and env stacks, in place; the other
+        slots keep their values."""
+        refill_lanes_masked(frames, take, interiors, lspec.frame,
+                            self.boundary)
+        for ef, e in zip(env_frames, env_new):
+            refill_lanes_env_masked(ef, take, e, lspec.frame, self.boundary,
+                                    halo=self._multistep)
+        return frames, env_frames
 
 
 def sweep_once(a, f, *, env=(), k=1, combine="sum", identity=None,

@@ -7,7 +7,9 @@ only the O(m+n) ghost ring is re-asserted between sweeps
 (:func:`refresh_frame`), and the domain is sliced out once at the end
 (:func:`unframe`).  :func:`refresh_frame` and :func:`unframe` also take a
 lane stack of frames (leading lane axis), the carry of the lane farm
-(:class:`LaneFrameSpec` and the ``*lane*`` helpers below).
+(:class:`LaneFrameSpec` and the ``*lane*`` helpers below), and the
+streaming farm refills single slots or masked sets of slots in place and
+stages items in a ring (the ``refill_*`` and ``*stage_ring*`` helpers).
 
     ┌──────────────────────────────┐
     │ ghost ring (pad = k·T wide)  │   frame shape: (gm·bm + 2·pad,
@@ -201,11 +203,6 @@ def refill_lane_frames(frames: torch.Tensor, interiors: torch.Tensor,
     return refresh_frame(frames, spec, boundary)
 
 
-def unframe_lanes(frames: torch.Tensor, spec: FrameSpec) -> torch.Tensor:
-    """Every lane's (m, n) domain (a view)."""
-    return unframe(frames, spec)
-
-
 def _env_ghost(boundary: Boundary | str) -> Boundary:
     """The ring of a halo env frame: wrapped under wrap, else zero (see
     :func:`frame_env`)."""
@@ -241,3 +238,90 @@ def refill_lane_env(env_frames: torch.Tensor, e: torch.Tensor,
     p = spec.pad
     env_frames[:, p:p + spec.m, p:p + spec.n] = e
     return refresh_frame(env_frames, spec, _env_ghost(boundary))
+
+
+# ---------------------------------------------------------------------------
+# Continuous refills — the streaming farm's in-place slot hand-offs (twins of
+# the reference's single-device refills).  A finished slot gets the next
+# item's interior by one ``copy_`` into its domain view (or, chained, every
+# taken slot at once by a select under a (lanes,) mask), then the ghost ring
+# is re-asserted from the new interior.  No frame is allocated.
+# ---------------------------------------------------------------------------
+
+
+def refill_slot_frame(frames: torch.Tensor, interior: torch.Tensor, idx: int,
+                      spec: FrameSpec,
+                      boundary: Boundary | str) -> torch.Tensor:
+    """Refill ONE lane slot ``idx`` in place with the next item's (m, n)
+    interior and re-assert that lane's ghost ring (the other lanes' rings
+    already agree with their domains)."""
+    p = spec.pad
+    frames[idx, p:p + spec.m, p:p + spec.n] = interior
+    refresh_frame(frames[idx], spec, boundary)
+    return frames
+
+
+def refill_slot_env(env_frames: torch.Tensor, e: torch.Tensor, idx: int,
+                    spec: FrameSpec, boundary: Boundary | str,
+                    halo: bool = False) -> torch.Tensor:
+    """Refill ONE lane's env slot in place (:func:`frame_env`'s layout):
+    an interior write, plus the ghost ring with ``halo``."""
+    off = spec.pad if halo else 0
+    env_frames[idx, off:off + spec.m, off:off + spec.n] = e
+    if halo:
+        refresh_frame(env_frames[idx], spec, _env_ghost(boundary))
+    return env_frames
+
+
+def _masked_interior_write(slots: torch.Tensor, take: torch.Tensor,
+                           new: torch.Tensor, off: int, m: int, n: int):
+    cur = slots[:, off:off + m, off:off + n]
+    cur.copy_(torch.where(take.reshape(-1, 1, 1), new.to(slots.dtype), cur))
+
+
+def refill_lanes_masked(frames: torch.Tensor, take: torch.Tensor,
+                        interiors: torch.Tensor, spec: FrameSpec,
+                        boundary: Boundary | str) -> torch.Tensor:
+    """Masked batch refill: the slots where the (lanes,) bool ``take`` is
+    set receive ``interiors`` (a (lanes, m, n) stack; rows of untaken
+    lanes are ignored), the others keep their interiors bit for bit; then
+    every ghost ring is re-asserted (a no-op value-wise for untaken
+    lanes).  In place; returns ``frames``."""
+    _masked_interior_write(frames, take, interiors, spec.pad, spec.m, spec.n)
+    return refresh_frame(frames, spec, boundary)
+
+
+def refill_lanes_env_masked(env_frames: torch.Tensor, take: torch.Tensor,
+                            e: torch.Tensor, spec: FrameSpec,
+                            boundary: Boundary | str,
+                            halo: bool = False) -> torch.Tensor:
+    """Masked batch env refill (twin of :func:`refill_lanes_masked` for
+    :func:`frame_env`'s layout)."""
+    _masked_interior_write(env_frames, take, e, spec.pad if halo else 0,
+                           spec.m, spec.n)
+    if halo:
+        refresh_frame(env_frames, spec, _env_ghost(boundary))
+    return env_frames
+
+
+# ---------------------------------------------------------------------------
+# Staging ring — the device-resident refill queue of the chained path: the
+# host writes the next K items' prepped (m, n) interiors (and env fields)
+# ahead of need, and the chained segment seats finished slots from it by a
+# device-side read cursor.  The ring holds logical interiors, not frames:
+# the masked refill re-derives ghosts exactly as a host-admitted item's.
+# ---------------------------------------------------------------------------
+
+
+def alloc_stage_ring(depth: int, entry_shape: tuple, dtype,
+                     device=None) -> torch.Tensor:
+    """Allocate a depth-K staging ring of per-item entries (zeros) —
+    once, at stream start."""
+    return torch.zeros((depth, *entry_shape), dtype=dtype, device=device)
+
+
+def stage_ring_write(ring: torch.Tensor, entry: torch.Tensor,
+                     pos: int) -> torch.Tensor:
+    """Write one prepped entry at ring position ``pos``, in place."""
+    ring[pos] = entry
+    return ring

@@ -20,8 +20,9 @@ StencilEngine`); on ``"torch"`` it is the shift algebra.
 :meth:`LoopOfStencilReduce.farm_run` runs a farm of such loops (the
 paper's 1:1 streaming mode) as one done-masked host loop over a
 lane-stacked carry, one kernel launch per sweep for every lane.
-``lane_segment``, ``segmented_while`` and the streaming ``FarmEngine``
-come with a later slice (ROADMAP.md queue A6).
+:meth:`LoopOfStencilReduce.lane_segment` (on :func:`segmented_while`)
+runs a bounded slice of that loop, the continuous-refill primitive of the
+streaming :class:`repro_torch.core.streaming.FarmEngine`.
 """
 from __future__ import annotations
 
@@ -38,6 +39,44 @@ from .reduce import (HEALTH_STALL_MASK, health_update, resolve_monoid,
                      tree_reduce)
 from .semantics import Boundary
 from .stencil import stencil_indexed, stencil_taps, stencil_windows
+
+
+def segmented_while(body, carry, *, finished, segment, early_exit=True):
+    """Bounded early-exit slice of a done-masked lane loop (twin of
+    :func:`repro.core.pattern.segmented_while`).
+
+    Runs ``body`` (carry → carry) until any lane **newly** satisfies
+    ``finished(carry)`` (a (lanes,) bool tensor), no unfinished lane
+    remains, or ``segment`` body steps have run.  Lanes finished at entry
+    do not trigger the exit — only a 0→1 transition does.  Returns
+    ``(carry', steps)`` with ``steps`` a host int.
+
+    The reference's on-device ``while_loop`` becomes a host loop: one host
+    read of the exit test before each body step, and one after the last
+    step unless the segment ran its full ``segment`` steps — so it exits at
+    the same step as the reference.  ``early_exit=False`` runs exactly
+    ``segment`` done-masked steps and reads nothing.
+    """
+    if not early_exit:
+        for _ in range(segment):
+            carry = body(carry)
+        return carry, segment
+    fin0 = finished(carry)
+    fin, steps = fin0, 0
+    while steps < segment:
+        newly = (fin & ~fin0).any()
+        if not bool((~fin).any() & ~newly):
+            break
+        carry = body(carry)
+        steps += 1
+        fin = finished(carry)
+    return carry, steps
+
+
+def segment_reads(steps: int, segment: int) -> int:
+    """Host reads :func:`segmented_while` made for a segment of ``steps``
+    body steps (early exit on)."""
+    return steps + (steps < segment)
 
 
 @dataclasses.dataclass
@@ -92,6 +131,10 @@ class LoopOfStencilReduce:
     sentinel: a :class:`~repro_torch.core.reduce.Sentinel` health policy,
               or None (only the CONVERGED bit is tracked).
     device:   ``None`` (the CUDA card) or an explicit device.
+    fault_hook: fault-injection seam of the lane paths: ``hook(r, it) ->
+              r`` intercepts the (lanes,) reduce after each step, before the
+              condition (see :mod:`repro_torch.resilience.faults`); None in
+              production.
     """
 
     f: Callable
@@ -111,6 +154,7 @@ class LoopOfStencilReduce:
     block: Optional[tuple] = None
     sentinel: Optional[Any] = None
     device: Any = None
+    fault_hook: Optional[Callable] = None
 
     def __post_init__(self):
         self._op, self._id = resolve_monoid(self.combine, self.identity)
@@ -199,10 +243,13 @@ class LoopOfStencilReduce:
                            state_view=lambda a: a, finalize=lambda a: a)
 
     # -- unroll resolution -----------------------------------------------
-    def _resolve_unroll(self, shape) -> "LoopOfStencilReduce":
+    def _resolve_unroll(self, shape,
+                        segment=None) -> "LoopOfStencilReduce":
         """Resolve ``unroll="auto"`` against the grid shape and fail loudly
         on an infeasible halo.  Returns ``self`` when nothing changes, else
-        a resolved copy."""
+        a resolved copy.  ``segment`` (continuous farms: body steps per
+        dispatch) folds the per-dispatch cost into the tuning, as in the
+        reference (:func:`~repro_torch.core.executor.auto_unroll`)."""
         if shape is None or len(shape) < 2:
             if self.unroll == "auto":
                 return dataclasses.replace(self, unroll=1)
@@ -210,7 +257,8 @@ class LoopOfStencilReduce:
         m, n = shape[-2], shape[-1]
         if self.unroll == "auto":
             T = (auto_unroll(m, n, k=self.k,
-                             block=self.block or AUTO_UNROLL_BLOCK)
+                             block=self.block or AUTO_UNROLL_BLOCK,
+                             segment=segment)
                  if self.backend == "cuda-multistep" else 1)
             return dataclasses.replace(self, unroll=T)
         if self.backend in KERNEL_BACKENDS:
@@ -318,9 +366,9 @@ class LoopOfStencilReduce:
             frames, env_frames, lspec = eng.prepare_lanes(a0, env)
             return self._drive_lanes(
                 frames,
-                step=lambda fr, live: eng.sweeps_lanes(fr, env_frames,
-                                                       lspec, live),
-                finalize=lambda fr: eng.unframe_lanes(fr, lspec),
+                step=lambda fr, live: eng.sweeps(fr, env_frames,
+                                                 lspec.frame, live),
+                finalize=lambda fr: eng.unframe(fr, lspec.frame),
                 done0=done0)
         return self._drive_lanes(a0, step=self._lane_step_torch(env),
                                  finalize=lambda a: a, done0=done0)
@@ -361,6 +409,8 @@ class LoopOfStencilReduce:
         a, r, it, done, hw = carry
         live = ~done & (it < self.max_iters)
         a, r_new = step(a, live)
+        if self.fault_hook is not None:
+            r_new = self.fault_hook(r_new, it)
         done_new = self._lane_cond(r_new)
         hw_new, quar = health_update(hw, r_new, r, live, done_new, it,
                                      self.sentinel)
@@ -398,6 +448,21 @@ class LoopOfStencilReduce:
         a, r, it, _, hw = carry
         return LoopResult(a=finalize(a), reduced=r, iters=it, state=None,
                           health=hw)
+
+    def lane_segment(self, carry, *, step, segment: int,
+                     early_exit: bool = True):
+        """One bounded slice of the lane loop — the continuous-refill tier.
+
+        Runs the done-masked body of :meth:`_drive_lanes` (``step(a,
+        live)`` as there) until a lane newly finishes (condition fired or
+        iteration cap hit), after at most ``segment`` body steps, or at once
+        when no live lane remains (:func:`segmented_while`).  ``carry = (a,
+        r, it, done, hw)`` keeps its shapes, so a streaming executor refills
+        the finished lanes' slots in place and resumes the same carry.
+        Returns ``(carry', steps)``, each step ``unroll`` sweeps deep."""
+        return segmented_while(lambda c: self._lane_body(step, c), carry,
+                               finished=self._lane_finished,
+                               segment=segment, early_exit=early_exit)
 
 
 # ---------------------------------------------------------------------------

@@ -193,6 +193,50 @@ def test_cuda_farm_run_matches_solo_runs(cuda, backend, unroll, key):
 
 
 # ---------------------------------------------------------------------------
+# the streaming FarmEngine: chained = classic = solo runs, bit for bit; the
+# slot buffers stay where they were allocated; one launch a body step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,unroll,key", [
+    ("cuda", 1, "stencil_sweep"), ("cuda-multistep", 3, "multistep_sweep")])
+def test_cuda_stream_chained_equals_classic_and_solo(cuda, backend, unroll,
+                                                     key):
+    from repro_torch.core.streaming import FarmEngine
+    items = [np.abs(x) for x in mixed_batch(n=7)]
+    loop = TP.LoopOfStencilReduce(
+        f=TR.restore_taps(2.0), k=1, combine="max", cond=lambda r: r < 1e-3,
+        delta=TR.abs_delta, boundary="reflect", max_iters=40, unroll=unroll,
+        backend=backend, device=cuda)
+
+    def prep(item):
+        return item, (item, (item > 1.0).to(item.dtype))
+    runs = {}
+    for chained in (True, False):
+        eng = FarmEngine(loop, lanes=3, prep=prep, segment=4,
+                         chained=chained)
+        got = []
+        before = TK.launch_counts[key]
+        assert eng.run(items, got.append, continuous=True) == len(items)
+        launched = TK.launch_counts[key] - before
+        assert sorted(r.index for r in got) == list(range(len(items)))
+        assert eng.buffer_pointers() == eng.bound_pointers
+        body_steps = eng.lane_steps // (3 * unroll)
+        assert launched == body_steps * (unroll if backend == "cuda" else 1)
+        runs[chained] = {r.index: r for r in got}
+    assert len({int(r.iters) for r in runs[True].values()}) > 1
+    for i, r in runs[True].items():
+        s = runs[False][i]
+        assert (r.status, int(r.iters)) == (s.status, int(s.iters))
+        torch.testing.assert_close(r.a, s.a, rtol=0, atol=0)
+        torch.testing.assert_close(r.reduced, s.reduced, rtol=0, atol=0)
+        a0, envs = prep(torch.as_tensor(items[i], device=cuda))
+        solo = loop.run(a0, env=envs)
+        assert int(solo.iters) == int(r.iters)
+        torch.testing.assert_close(r.a, solo.a.cpu(), rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
 # the kernel's own CTA tile: tiles that do not divide the interior, rows that
 # are not 16-byte aligned, the one-slot ring, lane stacks across tiles
 # ---------------------------------------------------------------------------

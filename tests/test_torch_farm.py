@@ -218,7 +218,7 @@ def test_lane_frames_match_reference(boundary, halo):
     TF.refill_lane_frames(tfr, torch.as_tensor(nxt), spec, boundary)
     np.testing.assert_array_equal(ring_window(tfr, p, m, n),
                                   ring_window(jfr, p, m, n))
-    np.testing.assert_array_equal(TF.unframe_lanes(tfr, spec).numpy(),
+    np.testing.assert_array_equal(TF.unframe(tfr, spec).numpy(),
                                   np.asarray(JF.unframe_lanes(jfr, jspec)))
     # env slots: interior layout, or full frames (zero/wrap ring) with halo
     jenv = JF.lane_env_frames(jnp.asarray(stack), jspec, boundary, halo)
@@ -264,7 +264,7 @@ def test_engine_refill_lanes_reuses_the_slots(backend):
     masks = (first > 1.0).float()
     frames, env, lspec = eng.prepare_lanes(first, (first, masks))
     assert lspec.shape == frames.shape
-    frames, red = eng.sweeps_lanes(frames, env, lspec)
+    frames, red = eng.sweeps(frames, env, lspec.frame)
     assert red.shape == (2,)
     frames, env = eng.refill_lanes(frames, env, second, (second, masks),
                                    lspec)
@@ -279,5 +279,5 @@ def test_engine_refill_lanes_reuses_the_slots(backend):
         torch.testing.assert_close(e[:, :2 * p + m, :2 * p + n],
                                    fe[:, :2 * p + m, :2 * p + n], rtol=0,
                                    atol=0)
-    np.testing.assert_array_equal(eng.unframe_lanes(frames, lspec).numpy(),
+    np.testing.assert_array_equal(eng.unframe(frames, lspec.frame).numpy(),
                                   second.numpy())

@@ -37,7 +37,8 @@ def test_scan_covers_the_port():
     assert {"pattern.py", "stencil2d.py", "multistep.py", "ops.py",
             "interop.py", "chip_smoke.py", "helmholtz.py", "swa_attention.py",
             "attention.py", "layers.py", "transformer.py", "objective.py",
-            "engine.py", "base.py", "gemma2_9b.py"} <= names
+            "engine.py", "base.py", "gemma2_9b.py", "streaming.py",
+            "recovery.py", "faults.py", "video_restoration.py"} <= names
 
 
 @pytest.fixture
@@ -63,6 +64,20 @@ def test_default_device_raises_without_a_card(cpu_only_host):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LoopOfStencilReduce(f=R.jacobi_taps(), cond=lambda r: True)
     assert resolve_device("cpu").type == "cpu"      # asked for: fine
+
+
+def test_stream_entry_points_raise_without_a_card(cpu_only_host):
+    from repro_torch.core.pattern import LoopOfStencilReduce
+    from repro_torch.core.streaming import FarmEngine
+    from repro_torch.examples import video_restoration as V
+    from repro_torch.kernels import ref as R
+    loop = LoopOfStencilReduce(f=R.restore_taps(), cond=lambda r: True,
+                               device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FarmEngine(loop, lanes=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        V.main(["--frames", "1"])
+    FarmEngine(loop, lanes=2, device="cpu")         # asked for: fine
 
 
 def test_lm_entry_points_raise_without_a_card(cpu_only_host):
