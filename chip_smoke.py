@@ -9,8 +9,9 @@ cores, the rest on CUDA cores), holds each against its plain
 PyTorch version, and drives the port's main paths — the persistent-frame
 Loop-of-stencil-reduce on "cuda" and "cuda-multistep", the lane farm
 ``farm_run``, the paper's §4 apps, the streaming FarmEngine on the §4.3
-restoration stream, and the gemma2-9b scoring forward and greedy serving
-— on one CUDA card at full size:
+restoration stream, the sharded 1:n tier ("cuda-sharded") on meshes of
+the card, and the gemma2-9b scoring forward and greedy serving — on one
+CUDA card at full size:
 
   0. the card (nvidia-smi), torch/CUDA versions, kernel build time,
      registers and spills of the stencil kernel's Helmholtz, Sobel and
@@ -48,6 +49,21 @@ restoration stream, and the gemma2-9b scoring forward and greedy serving
      and attempts, each victim lane's slot retired, less waste than round
      mode, the slot buffers never re-allocated, one launch a body step; ms a frame (wall, and device busy for round and chained),
      lane steps, host bytes and reads, the recovery counters;
+ 15. the sharded 1:n tier on meshes that repeat the one card
+     (["cuda:0"] * 4 as 4x1, by rows, and 2x2): (a) Helmholtz 8192x8192
+     f32, 200 sweeps on "cuda-sharded" at unroll 1 and 4 on both meshes
+     against phases 2 and 9 (and on 2x2 against the plain "torch"
+     sharded route on the card); (b) the converging solve through
+     ``ops.jacobi_solve(part=4x1)`` against phase 3; (c)
+     ``ops.restore(part=...)`` of phase 4's frame on both meshes against
+     phase 4; (d) (a) in bf16 on 2x2 at T = 1 against the single-device
+     bf16 run; equal iters, grids within TOL_GRID (scaled by max|u| where
+     phase 2 scales it), max reduces equal, sums within TOL_RED; two
+     planted faults (one shard's interior side given the global bound at
+     T = 4, one strip left unexchanged at T = 1) must fail the gate; ms a
+     sweep of wall and of device busy beside the single-device figures,
+     device events and bytes exchanged a check — on one card this is
+     what 1:n costs over 1:1, not a speed-up;
   5. per-kernel timings at the main path's shapes, each with its bound and
      the stencil kernel's launch choices (CTA tile, window slots, CTAs an
      SM, shared memory, registers); at 1080x1920 also the profiler's
@@ -87,8 +103,8 @@ restoration stream, and the gemma2-9b scoring forward and greedy serving
      1080x1920), the wrapper's choice marked.
 
 Every phase runs, at the sizes above, in the order listed.  Phases 2-4, 9,
-10 and 14 are the stencil main path: the kernel launch counts are zeroed
-just before phase 2 and read just after phase 14 (the single-step
+10, 14 and 15 are the stencil main path: the kernel launch counts are
+zeroed just before phase 2 and read just after phase 15 (the single-step
 launches also by shape, the multistep launches by T).  Phases 12-13 are
 the LM main path: the counts (the attention's by route) are zeroed just
 before phase 12 and read just after phase 13; the bf16 layers must take the wgmma
@@ -144,6 +160,10 @@ SERVE_PROMPT, SERVE_NEW = 4576, 32   # phase 13: max_seq 4608 > window 4096
 # published H100 device-memory rates (NVIDIA data sheets), by part
 MEM_RATE = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
 FP32_RATE = 67e12      # H100 SXM float32 outside the tensor cores
+# flops of one Helmholtz cell-sweep as csrc/elementals.cuh computes it (an
+# FMA counts two): three adds, the dx^2 f + s FMA, and div_fast's four FMAs
+# and one multiply (its reciprocal runs on the special-function unit)
+HELMHOLTZ_CELL_FLOPS = 14
 BF16_RATE = 989e12     # H100 SXM bf16 tensor cores, dense
 
 
@@ -415,8 +435,9 @@ def helmholtz_loop(u0, fxy, *, alpha, dx, tol, max_iters, backend, cond=None,
     return loop.run(u0, env=(fxy,))
 
 
-def phase2(gen, size, rate):
-    """Helmholtz, fixed 200 sweeps: kernel vs plain on the card."""
+def phase2(gen, size, rate, keep):
+    """Helmholtz, fixed 200 sweeps: kernel vs plain on the card.  Its
+    input and kernel result go into ``keep`` for phase 15."""
     import torch
     sweeps = 200
     u0 = torch.zeros((size, size), device="cuda")
@@ -443,11 +464,13 @@ def phase2(gen, size, rate):
             and same_scalar(rk.reduced, rp.reduced, 0.0)
             and int(rk.iters) == sweeps == int(rp.iters)):
         raise AssertionError("phase2 helmholtz kernel/plain mismatch")
+    keep[2] = dict(fxy=fxy, res=rk, ms=ms_k)
     return err, ms_k, ms_p
 
 
-def phase3(gen, size):
-    """Converging Helmholtz solve: equal iters, below the cap."""
+def phase3(gen, size, keep):
+    """Converging Helmholtz solve: equal iters, below the cap (input and
+    kernel result kept for phase 15)."""
     import torch
     u0 = torch.zeros((size, size), device="cuda")
     fxy = torch.randn((size, size), generator=gen, device="cuda")
@@ -467,11 +490,13 @@ def phase3(gen, size):
         f"wall cuda={tk:.3f}s torch={tp:.3f}s")
     if not (ik == ip < 2000 and err <= TOL_GRID and resid < 1e-4):
         raise AssertionError("phase3 converging solve mismatch")
+    keep[3] = dict(fxy=fxy, res=rk, wall=tk)
     return err
 
 
-def phase4(gen):
-    """Restoration of a full-HD frame, kernel vs plain."""
+def phase4(gen, keep):
+    """Restoration of a full-HD frame, kernel vs plain (the restore's
+    input and kernel result kept for phase 15)."""
     import torch
     from repro_torch.kernels import ops
     h, w = 1080, 1920
@@ -515,6 +540,8 @@ def phase4(gen):
     if not (masks_equal and int(ik) == int(ip) and gain > 10.0
             and err <= TOL_GRID and same_scalar(sk, spl, 0.0)):
         raise AssertionError("phase4 restoration mismatch")
+    keep[4] = dict(init=rk, mask=mk, out=ok_, red=dk, iters=int(ik),
+                   wall=trk)
     return err
 
 
@@ -642,7 +669,8 @@ def phase5_multistep(gen, size, rate):
     from repro_torch.kernels import ref as R
     from repro_torch.kernels.multistep import (stencil2d_multistep_framed,
                                                stencil2d_multistep_framed_ref)
-    from repro_torch.kernels.stencil2d import alloc_scratch, last_launch
+    from repro_torch.kernels.stencil2d import (alloc_scratch, last_launch,
+                                               sweep_cells)
     f = R.helmholtz_jacobi_taps(0.5, 1 / 512)
     cells = size * size
     rows = {}
@@ -682,15 +710,27 @@ def phase5_multistep(gen, size, rate):
         tm, tn = info["tm"], info["tn"]
         win = (1 + 2 * T / tm) * (1 + 2 * T / tn)
         design_ms = (win * 2 * 4 + 4) * cells / rate * 1e3
+        # the kernel's own operations: the lane-cells a useful cell costs
+        # at the launch's tile (sweep_cells) times the functor's flops a
+        # cell-sweep, over the f32 rate
+        lane_cells = sweep_cells((tm, tn), T, T)
+        ops_ms = lane_cells * T * HELMHOLTZ_CELL_FLOPS * cells \
+            / FP32_RATE * 1e3
+        design_by = "bytes" if nbytes / rate * 1e3 >= ops_ms \
+            else "operations"
         log(f"[phase5] multistep_sweep helmholtz {size}x{size} T={T}: "
             f"kernel {ms_k:.4f} ms/launch = {ms_k / T:.4f} ms/sweep, plain "
             f"{ms_p:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), window "
-            f"traffic {design_ms:.4f} ms at the HBM rate, "
-            f"{nbytes / (ms_k * 1e-3) / 1e9:.0f} GB/s of least bytes, "
-            f"max_abs_err vs plain {err!r}; {launch_note(info)}")
+            f"traffic {design_ms:.4f} ms at the HBM rate, the design's "
+            f"operations {ops_ms:.4f} ms ({lane_cells:.4f} lane-cells a "
+            f"useful cell-sweep x {HELMHOLTZ_CELL_FLOPS} flops at "
+            f"{FP32_RATE / 1e12:.0f} TFLOP/s; {design_by} bind the "
+            f"design), {nbytes / (ms_k * 1e-3) / 1e9:.0f} GB/s of least "
+            f"bytes, max_abs_err vs plain {err!r}; {launch_note(info)}")
         rows[T] = dict(ms=ms_k, ms_sweep=ms_k / T, plain_ms=ms_p,
                        bound_ms=bound_ms, bound_by=bound_by,
-                       window_ms=design_ms, err=err, info=info)
+                       window_ms=design_ms, ops_ms=ops_ms,
+                       lane_cells=lane_cells, err=err, info=info)
         del frame, out, env
         torch.cuda.empty_cache()
     return rows
@@ -1001,10 +1041,11 @@ def phase8(gen):
     return worst, worst16
 
 
-def phase9(gen, size, ms_single):
+def phase9(gen, size, ms_single, keep):
     """Helmholtz at ``size`` on "cuda-multistep", T in {2, 4, 8}: 200
     sweeps against "torch" at the same unroll, and the converging solve
-    (equal iters to "torch", within [iters on "cuda" at T=1, that + T))."""
+    (equal iters to "torch", within [iters on "cuda" at T=1, that + T)).
+    T = 4's input and 200-sweep result are kept for phase 15."""
     import torch
     from repro_torch.kernels import stencil2d as S
     u0 = torch.zeros((size, size), device="cuda")
@@ -1045,6 +1086,8 @@ def phase9(gen, size, ms_single):
                 and torch.isfinite(ck.a).all()):
             raise AssertionError(f"phase9 multistep T={T} mismatch")
         errs += [err, cerr]
+        if T == 4:
+            keep[9] = dict(fxy=fxy, res=rk, ms=ms_k)
         rows[T] = dict(ms_sweep=ms_k, torch_ms_sweep=ms_p, iters=ik,
                        solve_s=tck, launches=S.launch_counts[
                            "multistep_sweep"] - before)
@@ -1535,6 +1578,269 @@ def phase14(seed, shape=STREAM_SHAPE, frames=STREAM_FRAMES,
     rows["err_plain"] = err_plain
     rows["multistep_launches"] = S.launch_counts["multistep_sweep"] - ms0
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the sharded 1:n tier on meshes of the one card
+# ---------------------------------------------------------------------------
+
+# (name, mesh shape): 4x1 splits by rows (the paper's split), 2x2 rows and
+# columns; both repeat the one card, so they measure what 1:n costs over
+# 1:1 (strips, launches, the fold), not a speed-up across cards
+SHARD_MESHES = (("4x1", (4,)), ("2x2", (2, 2)))
+PROFILE_SWEEPS = 48
+
+
+def card_partition(shape):
+    """A partition of the grid over a mesh of ``shape`` that repeats the
+    one card: by rows on a 1-D mesh, rows x columns on a 2-D one."""
+    from repro_torch.sharding import GridPartition, make_mesh
+    n = math.prod(shape)
+    names = ("data", "model")[:len(shape)]
+    mesh = make_mesh(shape, names, devices=["cuda:0"] * n)
+    return GridPartition(mesh, names, tuple(range(len(shape))))
+
+
+def event_counts(rows):
+    """Device events of a profile: stencil kernels, copies (memcpy) and
+    every other kernel (strip fills, the fold, condition, health word)."""
+    stencil = sum(c for _, c, k in rows if "window_kernel" in k)
+    copies = sum(c for _, c, k in rows if "emcpy" in k)
+    total = sum(c for _, c, _ in rows)
+    return {"stencil": stencil, "copies": copies,
+            "other": total - stencil - copies, "total": total}
+
+
+def steady_state(run, T):
+    """Device busy ms a sweep, device events a check and the exchange's
+    strips and cells a check of a loop in its steady state:
+    ``run(max_iters)`` profiled at PROFILE_SWEEPS sweeps and at one check
+    (T sweeps), the difference over the checks between (the staging before
+    the loop and the gather after it cancel)."""
+    from repro_torch.core import frames as F
+
+    def one(n):
+        x0 = dict(F.exchange_counts)
+        _, busy, rows = profiled(lambda: run(n))
+        return busy, event_counts(rows), {
+            k: F.exchange_counts[k] - x0[k] for k in x0}
+    busy_n, ev_n, x_n = one(PROFILE_SWEEPS)
+    busy_1, ev_1, x_1 = one(T)
+    checks = PROFILE_SWEEPS // T - 1
+    return ((busy_n - busy_1) * 1e3 / (checks * T),
+            {k: (ev_n[k] - ev_1[k]) / checks for k in ev_n},
+            {k: (x_n[k] - x_1[k]) / checks for k in x_n})
+
+
+def phase15(keep):
+    """The sharded 1:n tier on meshes of the one card (["cuda:0"] * 4 as
+    4x1 and 2x2): (a) Helmholtz 8192^2 f32, 200 sweeps on "cuda-sharded"
+    at unroll 1 and 4 on both meshes, against phases 2 and 9 (and, on
+    2x2, against the plain "torch" sharded route on the card); (b) the
+    converging solve through ops.jacobi_solve(part=4x1) against phase 3;
+    (c) ops.restore(part=...) of phase 4's frame on both meshes against
+    phase 4; (d) (a) in bf16 on 2x2 at T = 1 against the single-device
+    bf16 run.  Two planted faults must fail the gates.  Prints ms a sweep
+    of wall and of device busy, device events and bytes exchanged a
+    check; every check raises on failure."""
+    import torch
+    from repro_torch.core import executor as E
+    from repro_torch.core.halo import distributed_loop_of_stencil_reduce
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels import stencil2d as S
+
+    sweeps = 200
+    u0 = torch.zeros((SIZE, SIZE), device="cuda")
+    fixed = dict(alpha=0.5, dx=1.0 / 512, tol=0.0, cond=lambda r: False)
+    parts = {name: card_partition(shape) for name, shape in SHARD_MESHES}
+    fails, rows, planted = [], {}, {}
+
+    def sharded(fxy, part, T, max_iters=sweeps, a0=u0):
+        from repro_torch.core.pattern import LoopOfStencilReduce
+        loop = LoopOfStencilReduce(
+            f=R.helmholtz_jacobi_taps(0.5, 1.0 / 512), k=1, combine="max",
+            cond=lambda r: False, delta=R.abs_delta, boundary="zero",
+            max_iters=max_iters, backend="cuda-sharded", unroll=T,
+            partition=part)
+        return loop.run(a0, env=(fxy.to(a0.dtype),))
+
+    def gate(label, res, want, limit, rel=0.0, iters=None):
+        err = max_err(res.a, want.a)
+        ok = (err <= limit and int(res.iters) == int(want.iters)
+              and same_scalar(res.reduced, want.reduced, rel)
+              and bool(torch.isfinite(res.a).all())
+              and (iters is None or int(res.iters) == iters))
+        if not ok:
+            fails.append(label)
+        return err, ok
+
+    # --- (a) Helmholtz 8192^2, 200 sweeps, both meshes, T = 1 and 4 -------
+    for T, src in ((1, 2), (4, 9)):
+        fxy, want = keep[src]["fxy"], keep[src]["res"]
+        umax = float(want.a.abs().max())
+        single = dict(backend="cuda" if T == 1 else "cuda-multistep",
+                      unroll=T, **fixed)
+        busy1, ev1, _ = steady_state(
+            lambda n: helmholtz_loop(u0, fxy, max_iters=n, **single), T)
+        walls = {name: [] for name in parts}
+        for name in parts:
+            sharded(fxy, parts[name], T, max_iters=2 * T)     # warm-up
+        # the walls in turns (4x1, 2x2, 2x2, 4x1): one run's spread
+        for name in list(parts) + list(parts)[::-1]:
+            before = dict(S.launch_counts)
+            res, secs = wall(lambda: sharded(fxy, parts[name], T))
+            walls[name].append(secs * 1e3 / sweeps)
+            launched = {k: S.launch_counts[k] - before[k] for k in before}
+            err, ok = gate(f"(a) {name} T={T}", res, want,
+                           TOL_GRID * umax, iters=sweeps)
+            if len(walls[name]) == 1:
+                rows[(name, T)] = dict(err=err, launches=launched, ok=ok,
+                                       reduced=float(res.reduced),
+                                       iters=int(res.iters))
+            rows[(name, T)]["err"] = max(rows[(name, T)]["err"], err)
+        for name, part in parts.items():
+            busy, ev, xch = steady_state(
+                lambda n: sharded(fxy, part, T, max_iters=n), T)
+            r = rows[(name, T)]
+            r.update(ms_sweep=sum(walls[name]) / 2, walls=walls[name],
+                     busy_ms_sweep=busy, single_busy_ms_sweep=busy1,
+                     single_ms_sweep=keep[src]["ms"], events=ev,
+                     single_events=ev1, strips=xch["strips"],
+                     bytes=xch["cells"] * 4)
+            log(f"[phase15] (a) helmholtz {SIZE}x{SIZE} f32 {sweeps} sweeps "
+                f"cuda-sharded {name} T={T}: max|d| vs phase {src}="
+                f"{r['err']!r} (limit {TOL_GRID * umax!r}) reduce "
+                f"{r['reduced']!r}/{float(want.reduced)!r} iters "
+                f"{r['iters']}/{int(want.iters)}; ms/sweep wall "
+                f"{walls[name][0]:.4f}, {walls[name][1]:.4f} busy "
+                f"{busy:.4f} (one device: wall {keep[src]['ms']:.4f} busy "
+                f"{busy1:.4f}); device events a check {ev['total']:.1f} "
+                f"(stencil kernels {ev['stencil']:.1f}, memcpy "
+                f"{ev['copies']:.1f}, other kernels {ev['other']:.1f}; one "
+                f"device {ev1['total']:.1f}); {xch['strips']:.0f} strips, "
+                f"{xch['cells'] * 4:.0f} B exchanged a check; launches of "
+                f"the first timed run {r['launches']} "
+                f"{'ok' if r['ok'] else 'FAIL'}")
+
+    # --- the plain sharded route on the card, 2x2, T = 1 and 4 ------------
+    for T, src in ((1, 2), (4, 9)):
+        fxy, want = keep[src]["fxy"], keep[src]["res"]
+        umax = float(want.a.abs().max())
+        kern = sharded(fxy, parts["2x2"], T)
+        plain, secs = wall(lambda: distributed_loop_of_stencil_reduce(
+            R.helmholtz_jacobi_taps(0.5, 1.0 / 512), "max",
+            lambda r: False, u0, k=1, part=parts["2x2"],
+            delta=R.abs_delta, max_iters=sweeps, unroll=T, env=(fxy,)))
+        err, ok = gate(f"(a) 2x2 T={T} vs plain route", kern, plain,
+                       TOL_GRID * umax, iters=sweeps)
+        rows[("2x2", T)]["err_plain"] = err
+        rows[("2x2", T)]["plain_ms_sweep"] = secs * 1e3 / sweeps
+        log(f"[phase15] (a) 2x2 T={T} kernel route vs plain \"torch\" "
+            f"sharded route on the card: max|d|={err!r} (limit "
+            f"{TOL_GRID * umax!r}) iters {int(kern.iters)}/"
+            f"{int(plain.iters)} reduce {float(kern.reduced)!r}/"
+            f"{float(plain.reduced)!r}; plain route "
+            f"{secs * 1e3 / sweeps:.4f} ms/sweep {'ok' if ok else 'FAIL'}")
+
+    # --- planted faults: each must fail the gate --------------------------
+    real_bounds, real_refresh = E.shard_domain_bounds, E.refresh_frames_sharded
+
+    def global_bound_on_shard0(sspec, index):
+        b = real_bounds(sspec, index)
+        if index == 0:     # its bottom side faces shard 2: use the edge
+            b = (b[0], sspec.local.pad + sspec.local.m) + b[2:]
+        return b
+
+    def one_strip_unexchanged(frames, sspec, boundary):
+        p = sspec.local.pad
+        stale = frames[1][0:p].clone()       # shard 1's top ghost rows
+        real_refresh(frames, sspec, boundary)
+        frames[1][0:p].copy_(stale)
+        return frames
+
+    for label, attr, fake, name, T, src in (
+            ("interior side given the global bound", "shard_domain_bounds",
+             global_bound_on_shard0, "2x2", 4, 9),
+            ("one strip left unexchanged", "refresh_frames_sharded",
+             one_strip_unexchanged, "4x1", 1, 2)):
+        fxy, want = keep[src]["fxy"], keep[src]["res"]
+        umax = float(want.a.abs().max())
+        setattr(E, attr, fake)
+        try:
+            bad = sharded(fxy, parts[name], T)
+        finally:
+            E.shard_domain_bounds = real_bounds
+            E.refresh_frames_sharded = real_refresh
+        err = max_err(bad.a, want.a)
+        planted[label] = err
+        caught = err > TOL_GRID * umax
+        log(f"[phase15] planted fault ({label}, {name} T={T}): max|d| vs "
+            f"phase {src}={err!r} against the limit {TOL_GRID * umax!r}: "
+            + ("fails the gate (as it must)" if caught
+               else "PASSES THE GATE"))
+        if not caught:
+            fails.append(f"planted fault passed: {label}")
+
+    # --- (b) the converging solve through ops.jacobi_solve(part=4x1) -------
+    want3 = keep[3]["res"]
+    (ub, db, ib), tb = wall(lambda: ops.jacobi_solve(
+        u0, keep[3]["fxy"], alpha=2.0, dx=0.2, tol=1e-5, max_iters=2000,
+        part=parts["4x1"]))
+    errb = max_err(ub, want3.a)
+    okb = (int(ib) == int(want3.iters) < 2000 and errb <= TOL_GRID
+           and same_scalar(db, want3.reduced, 0.0))
+    if not okb:
+        fails.append("(b)")
+    log(f"[phase15] (b) converging solve {SIZE}x{SIZE} jacobi_solve(part="
+        f"4x1): iters {int(ib)}/{int(want3.iters)} max|d| vs phase 3="
+        f"{errb!r} reduce {float(db)!r}/{float(want3.reduced)!r} wall "
+        f"{tb:.3f}s (phase 3: {keep[3]['wall']:.3f}s) "
+        f"{'ok' if okb else 'FAIL'}")
+
+    # --- (c) ops.restore(part=...) of phase 4's frame ----------------------
+    k4 = keep[4]
+    rows_c = {}
+    for name, part in parts.items():
+        ops.restore(k4["init"], k4["mask"], part=part)       # warm-up
+        (oc, dc, ic), tc = wall(lambda: ops.restore(
+            k4["init"], k4["mask"], part=part))
+        errc = max_err(oc, k4["out"])
+        okc = (int(ic) == k4["iters"] and errc <= TOL_GRID
+               and same_scalar(dc, k4["red"], TOL_RED))
+        if not okc:
+            fails.append(f"(c) {name}")
+        rows_c[name] = dict(err=errc, iters=int(ic), wall=tc)
+        log(f"[phase15] (c) restore 1080x1920 part={name}: iters "
+            f"{int(ic)}/{k4['iters']} max|d| vs phase 4={errc!r} mean|d| "
+            f"{float(dc)!r}/{float(k4['red'])!r} wall {tc:.4f}s (phase 4: "
+            f"{k4['wall']:.4f}s) {'ok' if okc else 'FAIL'}")
+
+    # --- (d) bf16, 2x2, T = 1 ----------------------------------------------
+    fxy2 = keep[2]["fxy"]
+    ub16 = torch.zeros((SIZE, SIZE), device="cuda", dtype=torch.bfloat16)
+    sd = helmholtz_loop(ub16, fxy2.to(torch.bfloat16), max_iters=sweeps,
+                        backend="cuda", **fixed)
+    bd = sharded(fxy2, parts["2x2"], 1, a0=ub16)
+    umax16 = float(sd.a.float().abs().max())
+    errd, okd = gate("(d) bf16 2x2 T=1", bd, sd, TOL_GRID * umax16,
+                     iters=sweeps)
+    okd = okd and bd.a.dtype == torch.bfloat16
+    log(f"[phase15] (d) helmholtz {SIZE}x{SIZE} bf16 {sweeps} sweeps "
+        f"cuda-sharded 2x2 T=1 vs the single-device bf16 run: max|d|="
+        f"{errd!r} (limit {TOL_GRID * umax16!r}) reduce "
+        f"{float(bd.reduced)!r}/{float(sd.reduced)!r} iters "
+        f"{int(bd.iters)}/{int(sd.iters)} {'ok' if okd else 'FAIL'}")
+    log("[phase15] every mesh repeats one card: these numbers are what 1:n "
+        "costs over 1:1 (strips, launches, the fold), not a speed-up "
+        "across cards")
+    if fails:
+        raise AssertionError("phase15: " + "; ".join(fails))
+    err_all = max([r["err"] for r in rows.values()]
+                  + [r.get("err_plain", 0.0) for r in rows.values()]
+                  + [errb, errd] + [r["err"] for r in rows_c.values()])
+    return dict(rows=rows, restore=rows_c, planted=planted, err=err_all,
+                solve_s=tb, solve_iters=int(ib))
 
 
 # ---------------------------------------------------------------------------
@@ -2104,31 +2410,40 @@ def main(argv=None) -> int:
     rate = mem_rate(card.split(",")[0])
     phase1(gen)
     err8, err8_bf16 = phase8(gen)
-    zero_counts()                              # main path: 2-4, 9, 10, 14
-    by_phase = {}
+    zero_counts()                          # main path: 2-4, 9, 10, 14, 15
+    by_phase, ms_by_phase, keep = {}, {}, {}
 
     def counted(phase, fn, *a):
-        """Run a main-path phase; note its stencil_sweep launches."""
-        before = S.launch_counts["stencil_sweep"]
+        """Run a main-path phase; note its launches of both entries."""
+        before = dict(S.launch_counts)
         out = fn(*a)
-        by_phase[phase] = S.launch_counts["stencil_sweep"] - before
+        by_phase[phase] = S.launch_counts["stencil_sweep"] \
+            - before["stencil_sweep"]
+        ms_by_phase[phase] = S.launch_counts["multistep_sweep"] \
+            - before["multistep_sweep"]
         return out
-    err2, ms_loop, _ = counted(2, phase2, gen, SIZE, rate)
-    err3 = counted(3, phase3, gen, SIZE)
-    err4 = counted(4, phase4, gen)
-    err9, rows9 = counted(9, phase9, gen, SIZE, ms_loop)
+    err2, ms_loop, _ = counted(2, phase2, gen, SIZE, rate, keep)
+    err3 = counted(3, phase3, gen, SIZE, keep)
+    err4 = counted(4, phase4, gen, keep)
+    err9, rows9 = counted(9, phase9, gen, SIZE, ms_loop, keep)
     rows10 = counted(10, phase10, gen)
     rows14 = counted(14, phase14, args.seed)
+    rows15 = counted(15, phase15, keep)
+    keep.clear()
     launches = dict(S.launch_counts)
-    log(f"[main] launches on the main path (phases 2-4, 9, 10, 14): "
-        f"{launches}")
+    log(f"[main] launches on the main path (phases 2-4, 9, 10, 14, 15): "
+        f"{launches}; phase 15 (sharded): stencil_sweep {by_phase[15]}, "
+        f"multistep_sweep {ms_by_phase[15]}")
     ss_by_shape = {
         f"Helmholtz {SIZE}x{SIZE} (phases 2, 3, 9)":
             by_phase[2] + by_phase[3] + by_phase[9],
         "1080x1920: AMF k=3, restore, Sobel (phase 4)": by_phase[4],
         "8 x 1080x1920 restore (phase 10)": by_phase[10],
         f"{STREAM_FRAMES} x 1080x1920 stream: AMF k=3 prep, restore on "
-        f"{STREAM_LANES} lanes (phase 14)": by_phase[14]}
+        f"{STREAM_LANES} lanes (phase 14)": by_phase[14],
+        f"Helmholtz {SIZE}x{SIZE} on 4 shards of one card, restore "
+        f"1080x1920 on 4 shards (phase 15, the planted faults' launches "
+        f"included)": by_phase[15]}
     log(f"[main] stencil_sweep launches by shape: {ss_by_shape}")
     ms_by_T = {f"T={T} (phase 9, Helmholtz {SIZE}x{SIZE})": r["launches"]
                for T, r in rows9.items()}
@@ -2136,6 +2451,9 @@ def main(argv=None) -> int:
         rows10["cuda-multistep"]["launches"]
     ms_by_T[f"T={rows14['T']} (phase 14, {STREAM_FRAMES} x 1080x1920 "
             f"stream)"] = rows14["multistep_launches"]
+    ms_by_T[f"T=4 (phase 15, Helmholtz {SIZE}x{SIZE} on 4 shards of one "
+            f"card, the planted fault's launches included)"] = \
+        ms_by_phase[15]
     log(f"[main] multistep_sweep launches by T: {ms_by_T}")
     for name, count in launches.items():
         if count == 0:
@@ -2195,6 +2513,13 @@ def main(argv=None) -> int:
         lm={"max_dlogits_f32": r12f["max_dlogits"],
             "loss_rel_f32": r12f["loss_rel"], "fault_f32": r12f["fault"],
             "greedy_agree_f32": r13f["agree"]})
+    def sharded_entry(r15, T):
+        """Phase 15's readings at one T, by mesh."""
+        return {name: {k: r15["rows"][(name, T)][k] for k in (
+                    "ms_sweep", "busy_ms_sweep", "single_ms_sweep",
+                    "single_busy_ms_sweep", "events", "bytes")}
+                for name, _ in SHARD_MESHES}
+
     def launch_of(info):
         return {k: info[k] for k in ("tm", "tn", "ring", "ctas_per_sm",
                                      "smem_bytes", "registers")}
@@ -2207,7 +2532,7 @@ def main(argv=None) -> int:
         "launches": launches["stencil_sweep"],
         "max_abs_err": max([err2, err3, err4, rows10["cuda"]["err"],
                             rows14["err_plain"]["c"],
-                            rows14["err_plain"]["e"]]
+                            rows14["err_plain"]["e"], rows15["err"]]
                            + [r["err"] for r in rows5s.values()]),
         "ms": helm5["ms"],
         "plain_ms": helm5["plain_ms"],
@@ -2225,8 +2550,9 @@ def main(argv=None) -> int:
                           "launch": launch_of(r["info"])}
                      for label, r in rows5s.items()},
         "bf16_max_abs_err": err8_bf16,
-        "phases": {"launched": [2, 3, 4, 9, 10, 14],
-                   "held_against_plain": [1, 2, 3, 4, 5, 8, 10, 14]},
+        "sharded": sharded_entry(rows15, 1),
+        "phases": {"launched": [2, 3, 4, 9, 10, 14, 15],
+                   "held_against_plain": [1, 2, 3, 4, 5, 8, 10, 14, 15]},
     }, {
         "name": "multistep_sweep",
         "route": "cuda",
@@ -2235,7 +2561,7 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/multistep.py:101",
         "launches": launches["multistep_sweep"],
         "max_abs_err": max([err8, err9, rows10["cuda-multistep"]["err"],
-                            rows14["err_plain"]["d"]]
+                            rows14["err_plain"]["d"], rows15["err"]]
                            + [r["err"] for r in rows5.values()]),
         "ms": rows5[4]["ms"],
         "plain_ms": rows5[4]["plain_ms"],
@@ -2246,12 +2572,15 @@ def main(argv=None) -> int:
         "launches_by_T": ms_by_T,
         "by_T": {T: {"ms_launch": r["ms"], "ms_sweep": r["ms_sweep"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "design_ops_ms": r["ops_ms"],
+                     "lane_cells": r["lane_cells"],
                      "loop_ms_sweep": rows9[T]["ms_sweep"],
                      "launch": launch_of(r["info"])}
                  for T, r in rows5.items()},
         "bf16_max_abs_err": err8_bf16,
-        "phases": {"launched": [9, 10, 14],
-                   "held_against_plain": [5, 8, 9, 10, 14]},
+        "sharded": sharded_entry(rows15, 4),
+        "phases": {"launched": [9, 10, 14, 15],
+                   "held_against_plain": [5, 8, 9, 10, 14, 15]},
     }, swa_wgmma, swa_core]}))
     phase6(gen, SIZE)
     phase7(gen, SIZE, rate)

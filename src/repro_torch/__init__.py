@@ -4,7 +4,9 @@ The JAX package :mod:`repro` is the reference; this package is its twin
 for an NVIDIA H100 and never imports it (nor JAX).  Ported so far: the
 paper's own loop on one device (:class:`~repro_torch.core.pattern.
 LoopOfStencilReduce` on a persistent halo frame, whose sweeps run on a
-hand-written CUDA kernel, ``kernels/csrc/window.cuh``), the §4 apps in
+hand-written CUDA kernel, ``kernels/csrc/window.cuh``), the same loop
+sharded over a device mesh (``backend="cuda-sharded"``,
+:mod:`repro_torch.sharding`), the §4 apps in
 :mod:`repro_torch.kernels.ops`, the streaming farm tier
 (:class:`~repro_torch.core.streaming.FarmEngine`, with the fault and
 recovery layer of :mod:`repro_torch.resilience`) and the LM path

@@ -1,7 +1,7 @@
 """Persistent-halo execution engine — the backend axis of the pattern.
 
-PyTorch twin of :mod:`repro.core.executor` (single-device part).  Three
-backends (:mod:`repro_torch.device`):
+PyTorch twin of :mod:`repro.core.executor`.  Four backends
+(:mod:`repro_torch.device`):
 
 ``"torch"``
     The shift-algebra path (:func:`repro_torch.core.stencil.stencil_taps`),
@@ -20,31 +20,40 @@ backends (:mod:`repro_torch.device`):
     (:func:`repro_torch.kernels.multistep.stencil2d_multistep_framed`) on a
     frame of pad k·T, one launch and one ghost refresh per T sweeps.
 
-The engine also carries a **lane stack** of frames (the 1:1 farm,
-:meth:`repro_torch.core.pattern.LoopOfStencilReduce.farm_run`): one launch
-sweeps every lane, and a lane that is done keeps its value.
+``"cuda-sharded"``
+    The 1:n deployment (:class:`ShardedStencilEngine`): one frame per
+    shard of a device mesh, each swept by the kernel of ``"cuda"`` (or, at
+    ``unroll=T > 1``, by the multistep kernel on a k·T-deep frame with the
+    shard's own domain bounds), then one edge-strip exchange between the
+    shards' frames and one fold of the per-shard partial reduces.
 
-``"cuda-sharded"`` (the 1:n deployment) is reserved for a later slice and
-raises ``NotImplementedError``.
+The single-device engine also carries a **lane stack** of frames (the 1:1
+farm, :meth:`repro_torch.core.pattern.LoopOfStencilReduce.farm_run`): one
+launch sweeps every lane, and a lane that is done keeps its value.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
 
 from ..device import BACKENDS, resolve_backend, resolve_device, to_device
-from .frames import (DEFAULT_BLOCK, FrameSpec, LaneFrameSpec, alloc_lane_env,
-                     alloc_lane_frames, ceil_mul, frame_env, frame_spec,
-                     make_frame, refill_lane_env, refill_lane_frames,
-                     refill_lanes_env_masked, refill_lanes_masked,
-                     refill_slot_env, refill_slot_frame, refresh_frame,
-                     unframe)
+from .frames import (DEFAULT_BLOCK, FrameSpec, LaneFrameSpec,
+                     ShardedFrameSpec, alloc_lane_env, alloc_lane_frames,
+                     ceil_mul, frame_env, frame_env_sharded, frame_spec,
+                     make_frame, make_frames_sharded, refill_lane_env,
+                     refill_lane_frames, refill_lanes_env_masked,
+                     refill_lanes_masked, refill_slot_env, refill_slot_frame,
+                     refresh_frame, refresh_frames_sharded,
+                     shard_domain_bounds, sharded_frame_spec, unframe)
+from .reduce import collective_combine, resolve_monoid
 from .semantics import Boundary
 
-__all__ = ["BACKENDS", "StencilEngine", "auto_unroll",
-           "check_unroll_feasible", "sweep_once"]
+__all__ = ["BACKENDS", "ShardedStencilEngine", "StencilEngine",
+           "auto_unroll", "check_unroll_feasible", "local_extents",
+           "sweep_once"]
 
 
 # auto_unroll's limits, the reference's own: the deepest T tried, the most
@@ -57,34 +66,49 @@ DISPATCH_AMORTIZE = 64
 AUTO_UNROLL_BLOCK = (256, 256)
 
 
-def auto_unroll(m: int, n: int, *, k: int = 1, block=AUTO_UNROLL_BLOCK,
-                segment: Optional[int] = None) -> int:
-    """Temporal-blocking depth T for ``unroll="auto"`` on
-    ``"cuda-multistep"`` — a copy of the reference's heuristic with the
-    same arithmetic and defaults, so the same arguments give the same T
-    (the 8/128 tile clipping included) and a loop resolves ``"auto"`` to
-    the reference's T: the pattern passes the caller's ``block``, or none.
-    The kernel picks its own CTA tile, so T does not depend on the frame
-    layout's ``DEFAULT_BLOCK``.
+def local_extents(m: int, n: int, part) -> tuple[int, int]:
+    """Per-shard domain extents of an (m, n) grid under ``part`` (a
+    :class:`repro_torch.sharding.GridPartition`); (m, n) when None."""
+    lm, ln = m, n
+    if part is not None:
+        for name, ax in zip(part.axis_names, part.array_axes):
+            nsh = part.axis_size(name)
+            if ax == 0:
+                lm = m // nsh
+            elif ax == 1:
+                ln = n // nsh
+    return lm, ln
 
-    Take the largest T ≤ ``UNROLL_CAP`` with k·T < min(m, n) (the halo
-    must fit the domain) and (1 + 2kT/bm)(1 + 2kT/bn) ≤
-    ``REDUNDANCY_LIMIT`` (the recomputed halo cells).  With ``segment``
-    (body steps per dispatch) T is pushed up toward
-    ceil(``DISPATCH_AMORTIZE`` / segment) while it stays feasible.  The
-    reference derived these limits for a TPU; an H100 cost model is still
-    to come (ROADMAP.md).
+
+def auto_unroll(m: int, n: int, *, k: int = 1, block=AUTO_UNROLL_BLOCK,
+                part=None, segment: Optional[int] = None) -> int:
+    """Temporal-blocking depth T for ``unroll="auto"`` on
+    ``"cuda-multistep"`` and ``"cuda-sharded"`` — a copy of the
+    reference's heuristic with the same arithmetic and defaults, so the
+    same arguments give the same T (the 8/128 tile clipping included) and
+    a loop resolves ``"auto"`` to the reference's T: the pattern passes the
+    caller's ``block``, or none.  The kernel picks its own CTA tile, so T
+    does not depend on the frame layout's ``DEFAULT_BLOCK``.
+
+    Take the largest T ≤ ``UNROLL_CAP`` with k·T < min(local m, n) (the
+    halo must fit a shard's domain; ``part`` gives the local extents) and
+    (1 + 2kT/bm)(1 + 2kT/bn) ≤ ``REDUNDANCY_LIMIT`` (the recomputed halo
+    cells).  With ``segment`` (body steps per dispatch) T is pushed up
+    toward ceil(``DISPATCH_AMORTIZE`` / segment) while it stays feasible.
+    The reference derived these limits for a TPU; an H100 cost model is
+    still to come (ROADMAP.md).
     """
-    if min(m, n) <= k:
+    lm, ln = local_extents(m, n, part)
+    if min(lm, ln) <= k:
         raise ValueError(
             f"stencil radius k={k} does not fit the local domain "
-            f"({m}x{n}): even T=1 needs k < min(local m, n); use a "
+            f"({lm}x{ln}): even T=1 needs k < min(local m, n); use a "
             f"coarser decomposition or a larger grid")
-    bm = min(block[0], ceil_mul(m, 8))
-    bn = min(block[1], ceil_mul(n, 128))
+    bm = min(block[0], ceil_mul(lm, 8))
+    bn = min(block[1], ceil_mul(ln, 128))
     best = 1
     for T in range(1, UNROLL_CAP + 1):
-        if k * T >= min(m, n):
+        if k * T >= min(lm, ln):
             break
         if (1 + 2 * k * T / bm) * (1 + 2 * k * T / bn) > REDUNDANCY_LIMIT:
             break
@@ -92,23 +116,28 @@ def auto_unroll(m: int, n: int, *, k: int = 1, block=AUTO_UNROLL_BLOCK,
     if segment is not None and best * segment < DISPATCH_AMORTIZE:
         want = -(-DISPATCH_AMORTIZE // segment)        # ceil division
         T = best
-        while T < min(want, UNROLL_CAP) and k * (T + 1) < min(m, n):
+        while T < min(want, UNROLL_CAP) and k * (T + 1) < min(lm, ln):
             T += 1
         best = T
     return best
 
 
-def check_unroll_feasible(m: int, n: int, unroll: int, *,
-                          k: int = 1) -> None:
+def check_unroll_feasible(m: int, n: int, unroll: int, *, k: int = 1,
+                          part=None) -> None:
     """Loud feasibility check for an explicit ``unroll=T`` (same
-    ``ValueError`` text as the reference, on the same shapes)."""
-    if k * unroll < min(m, n):
+    ``ValueError`` text as the reference, on the same shapes, the mesh
+    context included)."""
+    lm, ln = local_extents(m, n, part)
+    if k * unroll < min(lm, ln):
         return
-    tmax = max((min(m, n) - 1) // k, 0)
+    tmax = max((min(lm, ln) - 1) // k, 0)
+    where = (f"each of the {tuple(part.shards)} shards holds a local "
+             f"{lm}x{ln} block of the {m}x{n} grid" if part is not None
+             else f"the {m}x{n} grid")
     raise ValueError(
         f"unroll={unroll} is infeasible: the k*T={k * unroll}-deep halo "
-        f"must fit inside the local domain, but the {m}x{n} grid "
-        f"(k*T < min(local m, n) = {min(m, n)} requires T <= {tmax}). "
+        f"must fit inside the local domain, but {where} "
+        f"(k*T < min(local m, n) = {min(lm, ln)} requires T <= {tmax}). "
         f"Lower unroll, pass unroll='auto', or use a coarser "
         f"decomposition.")
 
@@ -298,6 +327,128 @@ class StencilEngine:
         return frames, env_frames
 
 
+def _on(device: torch.device):
+    """Make ``device`` current for a kernel launch (the C entries launch
+    on the current card)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+@dataclasses.dataclass
+class ShardedStencilEngine:
+    """The 1:n persistent engine: per-shard frames, edge-strip exchange,
+    one fold of the partial reduces (twin of the reference's
+    ``ShardedStencilEngine``, single-controller: one process drives every
+    shard, whose frames form a list in mesh order).
+
+    A call of :meth:`sweeps` is, for each shard, one kernel launch on its
+    device — ``unroll`` = 1: the single sweep of ``"cuda"``; ``unroll=T``
+    > 1: the multistep kernel's T sweeps on a k·T-deep frame, ⊥ re-asserted
+    only on sides at the global edge (:func:`~repro_torch.core.frames.
+    shard_domain_bounds`, host ints) — then ONE ghost exchange
+    (:func:`~repro_torch.core.frames.refresh_frames_sharded`) and ONE fold
+    of the per-shard partials on the lead device
+    (:func:`~repro_torch.core.reduce.collective_combine`).  :meth:`prepare`
+    allocates each shard's second frame and reduce scratch once, as
+    :class:`StencilEngine` does; the launches go through the kernel
+    wrappers, which run their plain versions on CPU frames.
+    """
+
+    f: Callable
+    part: Any                        # GridPartition (mesh + decomposition)
+    k: int = 1
+    boundary: Boundary | str = Boundary.ZERO
+    combine: Any = "sum"
+    identity: Any = None
+    delta: Optional[Callable] = None
+    measure: Optional[Callable] = None
+    block: tuple[int, int] = DEFAULT_BLOCK
+    unroll: int = 1
+    acc_dtype: Any = torch.float32
+
+    def __post_init__(self):
+        self.boundary = Boundary(self.boundary)
+        self._op, _ = resolve_monoid(self.combine, self.identity)
+        self._kernel_measure = self.delta
+        if self.delta is None and self.measure is not None:
+            meas = self.measure
+            self._kernel_measure = lambda new, old: meas(new)
+        self._buffers = None
+
+    @property
+    def _multistep(self) -> bool:
+        return self.unroll > 1
+
+    # -- per-shard frame staging (once, outside the loop) ---------------
+    def prepare(self, blocks, env_blocks=()):
+        """Stage each shard's block (a list in mesh order, each on its
+        device) and its env slices (one such list per field) into frames,
+        and allocate each shard's second frame, reduce scratch and domain
+        bounds.  Returns ``(frames, env_frames, sspec)``; ``env_frames[i]``
+        is shard i's tuple of env frames."""
+        from ..kernels.stencil2d import alloc_scratch
+
+        lm, ln = blocks[0].shape
+        sspec = sharded_frame_spec(
+            lm, ln, self.part, k=self.k, block=self.block,
+            sweeps=self.unroll if self._multistep else 1)
+        frames = make_frames_sharded(blocks, sspec, self.boundary)
+        per_field = [frame_env_sharded(e, sspec, self.boundary,
+                                       halo=self._multistep)
+                     for e in env_blocks]
+        env_frames = [tuple(f[i] for f in per_field)
+                      for i in range(len(frames))]
+        self._buffers = [(fr, torch.zeros_like(fr)) for fr in frames]
+        self._scratch = [alloc_scratch(sspec.local, fr.device)
+                         for fr in frames]
+        self._bounds = [shard_domain_bounds(sspec, i)
+                        for i in range(len(frames))]
+        return frames, env_frames, sspec
+
+    def _other(self, i: int, frame):
+        a, b = self._buffers[i]
+        if frame is not a and frame is not b:
+            raise ValueError("sweeps takes frames staged by prepare()")
+        return b if frame is a else a
+
+    # -- the loop body ----------------------------------------------------
+    def sweeps(self, frames, env_frames, sspec: ShardedFrameSpec):
+        """``unroll`` sweeps on every shard, ONE ghost exchange and the
+        combine; returns (frames', reduced) with ``reduced`` a 0-d tensor on
+        the lead device."""
+        from ..kernels.multistep import stencil2d_multistep_framed
+        from ..kernels.stencil2d import stencil2d_fused_framed
+
+        spec = sspec.local
+        kw = dict(combine=self.combine, identity=self.identity,
+                  measure=self._kernel_measure, acc_dtype=self.acc_dtype)
+        new, partials = [], []
+        for i, frame in enumerate(frames):
+            with _on(frame.device):
+                if self._multistep:
+                    out, red = stencil2d_multistep_framed(
+                        frame, self.f, spec, T=self.unroll,
+                        env_framed=env_frames[i], boundary=self.boundary,
+                        domain_bounds=self._bounds[i],
+                        out=self._other(i, frame),
+                        scratch=self._scratch[i], **kw)
+                else:
+                    out, red = stencil2d_fused_framed(
+                        frame, self.f, spec, env_framed=env_frames[i],
+                        out=self._other(i, frame),
+                        scratch=self._scratch[i], **kw)
+            new.append(out)
+            partials.append(red)
+        refresh_frames_sharded(new, sspec, self.boundary)
+        return new, collective_combine(self._op, partials)
+
+    def unframe(self, frames, sspec: ShardedFrameSpec) -> list:
+        """Each shard's local domain as a tensor of its own, after
+        convergence."""
+        return [unframe(fr, sspec.local).clone() for fr in frames]
+
+
 def sweep_once(a, f, *, env=(), k=1, combine="sum", identity=None,
                measure=None, boundary="zero", block=DEFAULT_BLOCK,
                backend=None, unroll=1, acc_dtype=torch.float32,
@@ -315,6 +466,12 @@ def sweep_once(a, f, *, env=(), k=1, combine="sum", identity=None,
     """
     dev = resolve_device(device)
     be = resolve_backend(backend, dev)
+    if be == "cuda-sharded":
+        # loop-only: it needs a mesh partition and a loop carry; one-shot
+        # sweeps stay on one device, as in the reference
+        raise ValueError(
+            f"unknown backend {be!r} for sweep_once; choose from "
+            "('torch', 'cuda', 'cuda-multistep')")
     a = to_device(a, dev)
     env = tuple(to_device(e, dev) for e in env)
     if be == "cuda-multistep":

@@ -325,3 +325,195 @@ def stage_ring_write(ring: torch.Tensor, entry: torch.Tensor,
     """Write one prepped entry at ring position ``pos``, in place."""
     ring[pos] = entry
     return ring
+
+
+# ---------------------------------------------------------------------------
+# Sharded frames — the 1:n deployment of the persistent-halo engine (twin of
+# the reference's sharded half).  Each shard carries its own frame on its own
+# device; the shards of one grid travel together as a list in mesh order
+# (:mod:`repro_torch.sharding.specs`).  The ghost ring is re-asserted by
+# ``copy_`` of O(pad·n) edge strips straight from the neighbour's frame into
+# this one's ring (a peer-to-peer copy across cards, an on-card copy where
+# two shards share a card: the reference's ppermute), with the global ⊥
+# model applied only on shards at the global edge.  With temporal blocking
+# (pad = k·T) one exchange feeds T fused sweeps.
+# ---------------------------------------------------------------------------
+
+# strip copies between two shards' frames and the cells they moved, counted
+# by the exchange where it copies (local ⊥ fills are not counted);
+# chip_smoke.py reads them around its sharded runs
+exchange_counts = {"strips": 0, "cells": 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedFrameSpec:
+    """Per-shard frame geometry plus its embedding in the device mesh.
+
+    ``local`` is the shard's own :class:`FrameSpec` (``m``/``n`` are the
+    LOCAL domain extents); ``axis_names[ax]`` is the mesh axis that
+    decomposes array axis ``ax`` (None = not decomposed), ``sizes[ax]`` its
+    arity and ``strides[ax]`` the step in the shard index between
+    neighbours along it (0 when not decomposed).
+    """
+
+    local: FrameSpec
+    axis_names: tuple          # per array axis: mesh axis name or None
+    sizes: tuple               # per array axis: mesh axis arity (1 if local)
+    strides: tuple             # per array axis: shard-index step (0 if local)
+
+    def coord(self, index: int, axis: int) -> int:
+        """Shard ``index``'s coordinate along array ``axis``."""
+        if self.strides[axis] == 0:
+            return 0
+        return (index // self.strides[axis]) % self.sizes[axis]
+
+    def neighbour(self, index: int, axis: int, step: int) -> int:
+        """The shard ``step`` (±1) away along array ``axis``, on the ring."""
+        c = self.coord(index, axis)
+        to = (c + step) % self.sizes[axis]
+        return index + (to - c) * self.strides[axis]
+
+
+def sharded_frame_spec(lm: int, ln: int, part, *, k: int = 1,
+                       block=DEFAULT_BLOCK, sweeps: int = 1
+                       ) -> ShardedFrameSpec:
+    """Frame geometry for one shard of an (lm·P, ln·Q) global domain under
+    ``part`` (a :class:`repro_torch.sharding.GridPartition`).  The ghost
+    ring must fit inside the *local* domain (pad = k·sweeps < min(lm, ln))
+    — deep temporal blocking wants coarse shards."""
+    names, sizes, strides = [None, None], [1, 1], [0, 0]
+    for name, ax in zip(part.axis_names, part.array_axes):
+        if ax not in (0, 1):
+            raise ValueError(f"sharded frames are 2-D; array axis {ax}")
+        names[ax] = name
+        sizes[ax] = part.axis_size(name)
+        strides[ax] = part.stride(name)
+    spec = frame_spec(lm, ln, k=k, block=block, sweeps=sweeps)
+    return ShardedFrameSpec(local=spec, axis_names=tuple(names),
+                            sizes=tuple(sizes), strides=tuple(strides))
+
+
+def _strip(frame, axis, lo, hi, olo, ohi):
+    """The view frame[lo:hi] along ``axis``, [olo:ohi] along the other."""
+    idx = [slice(olo, ohi), slice(olo, ohi)]
+    idx[axis] = slice(lo, hi)
+    return frame[tuple(idx)]
+
+
+def _edge_fill(frame, spec: FrameSpec, axis: int, boundary: Boundary,
+               olo: int, ohi: int, low: bool) -> None:
+    """⊥ on one side of one axis, from the frame itself: the constant, the
+    mirror of domain rows d0+1…d0+p (or their high twins), or the wrap."""
+    p = spec.pad
+    d0, d1 = p, p + (spec.m if axis == 0 else spec.n)
+    dst = _strip(frame, axis, 0, p, olo, ohi) if low else \
+        _strip(frame, axis, d1, d1 + p, olo, ohi)
+    if boundary in (Boundary.ZERO, Boundary.NAN):
+        dst.fill_(0.0 if boundary is Boundary.ZERO else float("nan"))
+    elif boundary is Boundary.REFLECT:
+        src = _strip(frame, axis, d0 + 1, d0 + 1 + p, olo, ohi) if low \
+            else _strip(frame, axis, d1 - 1 - p, d1 - 1, olo, ohi)
+        dst.copy_(src.flip(axis))
+    elif boundary is Boundary.WRAP:
+        dst.copy_(_strip(frame, axis, d1 - p, d1, olo, ohi) if low
+                  else _strip(frame, axis, d0, d0 + p, olo, ohi))
+    else:
+        raise ValueError(boundary)
+
+
+def _exchange_axis(frames, sspec: ShardedFrameSpec, axis: int,
+                   boundary: Boundary, olo: int, ohi: int) -> None:
+    """One axis's ghost strips of every shard, restricted to [olo:ohi]
+    along the other axis: my last ``pad`` domain rows go into the next
+    shard's leading ghost strip and my first ``pad`` into the previous
+    one's trailing strip.  Global-edge shards fill the missing side from
+    the ⊥ model; WRAP closes the ring (on an axis of one shard it exchanges
+    with itself, which is the local wrap).  Every source is a domain strip
+    and every target a ghost strip, so the copies of one pass commute."""
+    spec = sspec.local
+    p = spec.pad
+    d0, d1 = p, p + (spec.m if axis == 0 else spec.n)
+    nsh, decomposed = sspec.sizes[axis], sspec.axis_names[axis] is not None
+    wrap = boundary is Boundary.WRAP
+    for i, frame in enumerate(frames):
+        c = sspec.coord(i, axis)
+        for low, has in ((True, c > 0), (False, c < nsh - 1)):
+            if not decomposed or not (has or wrap):
+                _edge_fill(frame, spec, axis, boundary, olo, ohi, low)
+                continue
+            src = frames[sspec.neighbour(i, axis, -1 if low else 1)]
+            dst = _strip(frame, axis, 0, p, olo, ohi) if low else \
+                _strip(frame, axis, d1, d1 + p, olo, ohi)
+            dst.copy_(_strip(src, axis, d1 - p, d1, olo, ohi) if low
+                      else _strip(src, axis, d0, d0 + p, olo, ohi))
+            exchange_counts["strips"] += 1
+            exchange_counts["cells"] += dst.numel()
+
+
+def refresh_frames_sharded(frames, sspec: ShardedFrameSpec,
+                           boundary: Boundary | str):
+    """Re-assert every shard's ghost ring, in place — the loop body's
+    exchange.  Returns ``frames`` (a list in mesh order).
+
+    Axis 0 strips span the domain's columns; then axis 1 strips run the
+    full frame height, so corner ghosts come from the diagonal neighbour
+    (the reference's two-pass order, which is not :func:`refresh_frame`'s:
+    axis 0 must be done on every shard before axis 1 reads a ghost row).
+    Copies across devices order themselves against both devices' current
+    streams; nothing here synchronises the host.
+    """
+    boundary = Boundary(boundary)
+    spec = sspec.local
+    p = spec.pad
+    extents = ((p, p + spec.n), (0, spec.shape[0]))
+    for axis in (0, 1):
+        _exchange_axis(frames, sspec, axis, boundary, *extents[axis])
+    return frames
+
+
+def make_frames_sharded(blocks, sspec: ShardedFrameSpec,
+                        boundary: Boundary | str) -> list:
+    """Embed each shard's block (mesh order) into a frame on its device
+    and exchange the ghosts.  Runs once, before the loop."""
+    spec = sspec.local
+    p = spec.pad
+    frames = []
+    for blk in blocks:
+        frame = torch.zeros(spec.shape, dtype=blk.dtype, device=blk.device)
+        frame[p:p + spec.m, p:p + spec.n] = blk
+        frames.append(frame)
+    return refresh_frames_sharded(frames, sspec, boundary)
+
+
+def frame_env_sharded(blocks, sspec: ShardedFrameSpec,
+                      boundary: Boundary | str, halo: bool = False) -> list:
+    """Stage each shard's slice of a read-only env field, once.
+
+    Without ``halo`` each slice is block-rounded only (interior layout) and
+    is never exchanged.  With ``halo`` (temporal blocking) the ghost strips
+    hold the *neighbour's* env — intermediate sweeps evaluate ``f`` on
+    ghost cells that are real cells of the adjacent shard — through the
+    same exchange; at global edges the ring is zero except under WRAP, as
+    in :func:`frame_env`.
+    """
+    if not halo:
+        return [frame_env(b, sspec.local, boundary) for b in blocks]
+    return make_frames_sharded(blocks, sspec, _env_ghost(boundary))
+
+
+def shard_domain_bounds(sspec: ShardedFrameSpec, index: int) -> tuple:
+    """``(row_lo, row_hi, col_lo, col_hi)`` of the GLOBAL domain in shard
+    ``index``'s frame coordinates, as host ints (the mesh coordinates are
+    known on the host).  Sides that continue into a neighbour shard get
+    ±2^30 sentinels, so the multistep kernel's per-sweep ⊥ re-assertion
+    never fires there: those ghost cells are real cells of the neighbour
+    and evolve freely."""
+    spec = sspec.local
+    big = 1 << 30
+    p = spec.pad
+    out = []
+    for axis, dom in enumerate((spec.m, spec.n)):
+        c = sspec.coord(index, axis)
+        out += [p if c == 0 else -big,
+                p + dom if c == sspec.sizes[axis] - 1 else big]
+    return tuple(out)

@@ -1,7 +1,7 @@
 """The Loop-of-stencil-reduce pattern — production implementation.
 
-PyTorch twin of :mod:`repro.core.pattern` (single-device part).  Pattern
-semantics (paper §3.1, all variants, composable):
+PyTorch twin of :mod:`repro.core.pattern`.  Pattern semantics (paper §3.1,
+all variants, composable):
 
     repeat
         a = stencil(σ_k, f) : a          # -i: f also sees absolute indexes
@@ -15,7 +15,10 @@ the condition flag and the health word stay on the device, and the only
 host read per check is the done flag.  On the kernel backends
 (``"cuda"``, ``"cuda-multistep"``) the loop body is a hand-written kernel
 on a persistent halo frame (:class:`repro_torch.core.executor.
-StencilEngine`); on ``"torch"`` it is the shift algebra.
+StencilEngine`); on ``"torch"`` it is the shift algebra.  On
+``"cuda-sharded"`` (the 1:n deployment) the carry is one frame per shard of
+a device mesh (:class:`repro_torch.core.executor.ShardedStencilEngine`)
+and the reduce the condition reads is the fold of the shards' partials.
 
 :meth:`LoopOfStencilReduce.farm_run` runs a farm of such loops (the
 paper's 1:1 streaming mode) as one done-masked host loop over a
@@ -33,6 +36,7 @@ import torch
 
 from ..device import KERNEL_BACKENDS, resolve_backend, resolve_device, \
     to_device
+from ..sharding.specs import normalise_device
 from .executor import AUTO_UNROLL_BLOCK, auto_unroll, check_unroll_feasible
 from .frames import DEFAULT_BLOCK
 from .reduce import (HEALTH_STALL_MASK, health_update, resolve_monoid,
@@ -123,14 +127,21 @@ class LoopOfStencilReduce:
               None) on ``"cuda-multistep"``, where ``unroll`` is the
               number of sweeps fused into one launch.
     backend:  ``None`` (``"cuda"`` on a CUDA device, ``"torch"`` on the
-              CPU), ``"torch"``, ``"cuda"`` or ``"cuda-multistep"`` (the
-              kernel backends: taps mode, 2-D arrays).
+              CPU), ``"torch"``, ``"cuda"``, ``"cuda-multistep"`` or
+              ``"cuda-sharded"`` (the kernel backends: taps mode, 2-D
+              arrays).  ``"cuda-sharded"`` is the 1:n deployment: per-shard
+              frames, edge-strip exchange, a fold of the partial reduces;
+              ``unroll=T`` > 1 runs T fused sweeps a shard per exchange
+              (``"auto"`` resolves on the local extents).
+    partition: a :class:`repro_torch.sharding.GridPartition` — required by
+              (and only read on) ``"cuda-sharded"``.
     block:    the frame's block (rows, cols): its round-up (the kernels
               choose their own CTA tile); None lays frames out by
               ``frames.DEFAULT_BLOCK``.
     sentinel: a :class:`~repro_torch.core.reduce.Sentinel` health policy,
               or None (only the CONVERGED bit is tracked).
-    device:   ``None`` (the CUDA card) or an explicit device.
+    device:   ``None`` (the CUDA card; on ``"cuda-sharded"`` the
+              partition's lead device) or an explicit device.
     fault_hook: fault-injection seam of the lane paths: ``hook(r, it) ->
               r`` intercepts the (lanes,) reduce after each step, before the
               condition (see :mod:`repro_torch.resilience.faults`); None in
@@ -151,6 +162,7 @@ class LoopOfStencilReduce:
     max_iters: int = 10_000
     unroll: Any = 1
     backend: Optional[str] = None
+    partition: Optional[Any] = None
     block: Optional[tuple] = None
     sentinel: Optional[Any] = None
     device: Any = None
@@ -163,6 +175,19 @@ class LoopOfStencilReduce:
             raise ValueError("a termination condition c is required")
         if self.mode not in ("taps", "windows", "indexed", "step"):
             raise ValueError(f"unknown mode {self.mode!r}")
+        if self.backend == "cuda-sharded":
+            if self.partition is None:
+                raise ValueError(
+                    "backend='cuda-sharded' needs a partition= "
+                    "(repro_torch.sharding.GridPartition)")
+            lead = self.partition.lead
+            if self.device is None:
+                self.device = lead
+            elif normalise_device(self.device) != lead:
+                raise ValueError(
+                    f"backend='cuda-sharded' runs its loop on the "
+                    f"partition's lead device {str(lead)!r}; got "
+                    f"device={str(self.device)!r}")
         self.device = resolve_device(self.device)
         self.backend = resolve_backend(self.backend, self.device)
         if self.unroll != "auto" and (not isinstance(self.unroll, int)
@@ -229,6 +254,8 @@ class LoopOfStencilReduce:
                     f"backend {self.backend!r} requires mode='taps' and a "
                     f"2-D array; got mode={self.mode!r}, "
                     f"ndim={getattr(a0, 'ndim', None)}")
+            if self.backend == "cuda-sharded":
+                return self._run_sharded(a0, state0, env)
             return self._run_persistent(a0, state0, env)
 
         def one_iter(a):
@@ -249,21 +276,23 @@ class LoopOfStencilReduce:
         on an infeasible halo.  Returns ``self`` when nothing changes, else
         a resolved copy.  ``segment`` (continuous farms: body steps per
         dispatch) folds the per-dispatch cost into the tuning, as in the
-        reference (:func:`~repro_torch.core.executor.auto_unroll`)."""
+        reference (:func:`~repro_torch.core.executor.auto_unroll`).  On
+        ``"cuda-sharded"`` both count on the partition's local extents."""
         if shape is None or len(shape) < 2:
             if self.unroll == "auto":
                 return dataclasses.replace(self, unroll=1)
             return self
         m, n = shape[-2], shape[-1]
+        part = self.partition if self.backend == "cuda-sharded" else None
         if self.unroll == "auto":
+            deep = self.backend in ("cuda-multistep", "cuda-sharded")
             T = (auto_unroll(m, n, k=self.k,
                              block=self.block or AUTO_UNROLL_BLOCK,
-                             segment=segment)
-                 if self.backend == "cuda-multistep" else 1)
+                             part=part, segment=segment) if deep else 1)
             return dataclasses.replace(self, unroll=T)
         if self.backend in KERNEL_BACKENDS:
-            sweeps = self.unroll if self.backend == "cuda-multistep" else 1
-            check_unroll_feasible(m, n, sweeps, k=self.k)
+            sweeps = self.unroll if self.backend != "cuda" else 1
+            check_unroll_feasible(m, n, sweeps, k=self.k, part=part)
         return self
 
     def _engine(self):
@@ -292,6 +321,36 @@ class LoopOfStencilReduce:
                            step=lambda fr: eng.sweeps(fr, env_frames, spec),
                            state_view=lambda fr: eng.unframe(fr, spec),
                            finalize=lambda fr: eng.unframe(fr, spec))
+
+    # -- the sharded persistent loop (1:n deployment) --------------------
+    def _run_sharded(self, a0, state0, env) -> LoopResult:
+        """The 1:n realisation: the carry is one halo frame per shard (a
+        list in mesh order, each on its device); a check is a launch a
+        shard, one edge-strip exchange and one fold of the partials on the
+        lead device, where the condition and health word live — the one
+        host read a check stays the done flag.  The grid is scattered once
+        and gathered once, after convergence."""
+        from ..sharding.specs import check_even, gather_grid, scatter_grid
+        from .executor import ShardedStencilEngine
+
+        if self.state_init is not None or state0 is not None:
+            raise ValueError(
+                "the -s variant is not supported on backend="
+                "'cuda-sharded' (per-shard state views are ambiguous)")
+        part = self.partition
+        check_even(a0.shape, part)
+        eng = ShardedStencilEngine(
+            f=self.f, part=part, k=self.k, boundary=self.boundary,
+            combine=self.combine, identity=self.identity, delta=self.delta,
+            measure=self.measure, block=self.block or DEFAULT_BLOCK,
+            unroll=self.unroll)
+        frames0, env_frames, sspec = eng.prepare(
+            scatter_grid(a0, part), [scatter_grid(e, part) for e in env])
+        gather = lambda frs: gather_grid(eng.unframe(frs, sspec), part)
+        return self._drive(
+            frames0, None,
+            step=lambda frs: eng.sweeps(frs, env_frames, sspec),
+            state_view=gather, finalize=gather)
 
     # -- the repeat/until driver (all backends) --------------------------
     def _drive(self, a0, state0, *, step, state_view, finalize
@@ -347,9 +406,10 @@ class LoopOfStencilReduce:
                 "state)")
         if self.backend == "cuda-sharded":
             raise ValueError(
-                "backend='cuda-sharded' lanes are driven by the streaming "
-                "FarmEngine (they need a mesh carrying both the lane and "
-                "the spatial axes; ROADMAP.md queue A6/A7)")
+                "backend='cuda-sharded' lanes are driven by "
+                "repro_torch.core.streaming.FarmEngine (they need a mesh "
+                "carrying both the lane and the spatial axes; ROADMAP.md "
+                "queue A7b)")
         a0 = to_device(a0, self.device)
         env = tuple(to_device(e, self.device) for e in env)
         shape = getattr(a0, "shape", None)

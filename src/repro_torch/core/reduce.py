@@ -45,6 +45,35 @@ def monoid_name(op) -> str | None:
     return None
 
 
+def collective_combine(op: Callable, partials) -> torch.Tensor:
+    """The cross-shard phase of the two-phase reduce: one 0-d value from
+    the per-shard partials (a list in mesh order), on the first partial's
+    device (twin of the reference's ``collective_combine``, whose
+    collectives hand every shard this value).
+
+    ``max``/``min`` fold with ``torch.maximum``/``torch.minimum`` and keep
+    the reference's explicit NaN re-propagation (its all-reduce drops NaN;
+    a NaN partial makes the result NaN).  ``any``/``all`` go through
+    indicator counts, as in the reference.  Every other ⊕ folds in mesh
+    order (the reference's ``psum`` serves sums only).
+    """
+    lead = partials[0].device
+    vals = torch.stack([p.to(lead) for p in partials])
+    if op in (torch.logical_or, torch.logical_and):
+        count = vals.to(torch.float32).sum()
+        return count > 0 if op is torch.logical_or else \
+            count >= float(len(partials))
+    r = vals[0]
+    for v in vals[1:]:
+        r = op(r, v)
+    if (op is torch.maximum or op is torch.minimum) \
+            and vals.dtype.is_floating_point:
+        r = torch.where(torch.isnan(vals).any(),
+                        torch.full((), float("nan"), dtype=r.dtype,
+                                   device=lead), r)
+    return r
+
+
 # ---------------------------------------------------------------------------
 # Convergence sentinels — the per-lane health word (same bit layout as the
 # reference, so words compare bit for bit across the two packages).

@@ -33,8 +33,10 @@ Two tiers, as in the reference:
 Where the reference runs an on-device ``while_loop``, the port runs a host
 loop over device tensors with one host read per body step.  Results leave
 the device once per emission (round mode: once per round) and reach the
-sink as CPU tensors.  The sharded deployments (``mesh=``, ``sharded_farm``)
-belong to ROADMAP.md queue A7 and raise ``NotImplementedError``.
+sink as CPU tensors.  :func:`sharded_farm` spreads a generic farm's lanes
+over a mesh axis; the engine tier over a mesh (``FarmEngine(mesh=...)``, a
+``"cuda-sharded"`` loop inside it, the composed lanes × spatial farm)
+belongs to ROADMAP.md queue A7b and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -52,7 +54,8 @@ from .frames import alloc_stage_ring, stage_ring_write, unframe
 from .pattern import LoopResult, segment_reads
 from .reduce import HEALTH_CONVERGED, HEALTH_DIVERGED, HEALTH_POISONED
 
-_SHARDED = "ROADMAP.md queue A7 (the sharded tier)"
+_SHARDED = ("ROADMAP.md queue A7b (FarmEngine over a mesh: lanes over a "
+            "mesh axis and the composed lanes x spatial farm)")
 
 
 class NonFiniteItemError(ValueError):
@@ -147,10 +150,40 @@ def ofarm(worker: Callable, *, lanes_axis: int = 0) -> Callable:
 
 
 def sharded_farm(worker: Callable, mesh: Any, axis: str = "data"):
-    """Generic-tier farm over a device mesh — not in the port yet."""
-    raise NotImplementedError(
-        f"sharded_farm (lanes spread over a device mesh) belongs to "
-        f"{_SHARDED}")
+    """Generic-tier farm whose lanes are spread over mesh axis ``axis``
+    (a :class:`repro_torch.sharding.Mesh`).
+
+    A batch's lanes split evenly over the devices along ``axis`` (the other
+    mesh axes at their first device), in order; each chunk moves to its
+    device and runs through :func:`farm` there, and the results are
+    stacked on the mesh's first device in lane order.  Every batch
+    re-enters the worker from the host, as in the reference; the engine
+    tier over a mesh (``FarmEngine(mesh=...)``) is ROADMAP.md queue A7b.
+    """
+    if axis not in mesh.shape:
+        raise ValueError(f"mesh has no axis {axis!r}")
+    at = [0] * mesh.devices.ndim
+    pos = mesh.axis_names.index(axis)
+    devices = []
+    for c in range(mesh.shape[axis]):
+        at[pos] = c
+        devices.append(mesh.devices[tuple(at)])
+    inner = farm(worker)
+
+    def run(batch):
+        lanes = _tree_leaves(batch)[0].shape[0]
+        if lanes % len(devices):
+            raise ValueError(
+                f"a batch of {lanes} lanes must divide evenly over mesh "
+                f"axis {axis!r} (size {len(devices)})")
+        per = lanes // len(devices)
+        outs = [inner(_tree_map(
+                    lambda x: torch.as_tensor(x)[c * per:(c + 1) * per]
+                    .to(dev), batch))
+                for c, dev in enumerate(devices)]
+        return _tree_map(lambda *xs: torch.cat(
+            [torch.as_tensor(x).to(devices[0]) for x in xs]), *outs)
+    return run
 
 
 @dataclasses.dataclass
@@ -422,14 +455,15 @@ class FarmEngine:
     :meth:`run_continuous`.
 
     ``device`` defaults to the CUDA card and must be the loop's device.
-    ``mesh=`` (lanes over a device mesh) and the composed lanes × spatial
-    deployment belong to ROADMAP.md queue A7 and raise.
+    ``mesh=`` (lanes over a device mesh), a ``"cuda-sharded"`` loop and the
+    composed lanes × spatial deployment belong to ROADMAP.md queue A7b and
+    raise.
     """
 
     loop: Any                          # LoopOfStencilReduce worker
     lanes: int = 4
     prep: Optional[Callable] = None    # item -> (a0, env tuple), on device
-    mesh: Any = None                   # the sharded tier: not ported yet
+    mesh: Any = None                   # lanes over a mesh: queue A7b
     segment: int = 16                  # continuous mode: max body steps
                                        # between dispatcher check-ins
     max_attempts: int = 1              # slot occupations per item

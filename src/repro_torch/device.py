@@ -16,6 +16,12 @@ The backend axis of the port:
     hand-written multistep kernel (twin of ``"pallas-multistep"``).  Needs
     tensors on a CUDA device.
 
+``"cuda-sharded"``
+    The 1:n deployment: one frame per shard of a device mesh
+    (:mod:`repro_torch.sharding`), each swept by the kernels above, with an
+    edge-strip exchange and a fold of the partial reduces between checks
+    (twin of ``"pallas-sharded"``).  Needs a ``partition=``.
+
 ``backend=None`` resolves to ``"cuda"`` on a CUDA device and to
 ``"torch"`` on the CPU.
 """
@@ -23,15 +29,9 @@ from __future__ import annotations
 
 import torch
 
-BACKENDS = ("torch", "cuda", "cuda-multistep")
+BACKENDS = ("torch", "cuda", "cuda-multistep", "cuda-sharded")
 # the backends that run a hand-written kernel (CUDA tensors only)
-KERNEL_BACKENDS = ("cuda", "cuda-multistep")
-
-# names of backends the later slices of the port bring, with the ROADMAP
-# item that tracks each
-RESERVED_BACKENDS = {
-    "cuda-sharded": "ROADMAP.md queue A7 (sharded 1:n tier)",
-}
+KERNEL_BACKENDS = ("cuda", "cuda-multistep", "cuda-sharded")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -49,10 +49,6 @@ def resolve_backend(backend, device: torch.device) -> str:
     """Resolve ``backend`` against ``device`` (see module docstring)."""
     if backend is None:
         return "cuda" if device.type == "cuda" else "torch"
-    if backend in RESERVED_BACKENDS:
-        raise NotImplementedError(
-            f"backend={backend!r} belongs to a later slice of the port: "
-            f"{RESERVED_BACKENDS[backend]}")
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown backend {backend!r}; choose from {BACKENDS}")

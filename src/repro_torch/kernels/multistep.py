@@ -75,11 +75,17 @@ def window_bytes(spec: FrameSpec, n_env: int, tile, itemsize: int = 4,
 
 
 def _bounds(spec: FrameSpec, domain_bounds) -> tuple:
-    """(row_lo, row_hi, col_lo, col_hi) in frame coordinates."""
+    """(row_lo, row_hi, col_lo, col_hi) in frame coordinates.  Host ints
+    pass straight through (the sharded engine's; a device tensor would cost
+    a host sync a launch)."""
     if domain_bounds is None:
         p = spec.pad
         return p, p + spec.m, p, p + spec.n
-    b = [int(v) for v in torch.as_tensor(domain_bounds).reshape(-1).tolist()]
+    if isinstance(domain_bounds, (tuple, list)):
+        b = [int(v) for v in domain_bounds]
+    else:
+        b = [int(v) for v in
+             torch.as_tensor(domain_bounds).reshape(-1).tolist()]
     if len(b) != 4:
         raise ValueError(f"domain_bounds must hold 4 ints; got {b}")
     return tuple(b)
@@ -205,8 +211,8 @@ def stencil2d_multistep_framed(frame: torch.Tensor, f: Callable,
     ``(out, reduced)``: ``out`` (a second frame, allocated when not given)
     holds the T-th iterate in its interior and an unrefreshed ghost ring;
     ``reduced`` is ``/(⊕) : measure(last, second last)`` over the domain.
-    ``domain_bounds`` (4 ints, or a (1, 4) tensor) overrides where ⊥ sees
-    the domain edge.  ``scratch`` is
+    ``domain_bounds`` (4 host ints, or a (1, 4) tensor, read to the host)
+    overrides where ⊥ sees the domain edge.  ``scratch`` is
     :func:`repro_torch.kernels.stencil2d.alloc_scratch`'s.  ``tile`` forces
     the kernel's CTA tile, as for the single-step wrapper.
 

@@ -15,7 +15,12 @@ Loop-of-stencil-reduce through the engine's backend axis
 ``use_kernel`` is the boolean shorthand (True → "cuda", False → "torch",
 None → by device: "cuda" on a CUDA device, "torch" on the CPU); an
 explicit ``backend=`` wins.  ``device=None`` means the CUDA card.
-``part=`` (the sharded 1:n deployment) comes with the sharded slice.
+
+``part=`` (a :class:`repro_torch.sharding.GridPartition`) on the iterative
+apps selects the sharded 1:n deployment, ``backend="cuda-sharded"``: one
+frame per shard of the partition's mesh, the grid scattered once and
+gathered onto the mesh's lead device (``device=None`` then means that
+device).
 """
 from __future__ import annotations
 
@@ -39,11 +44,19 @@ def _resolve_backend(use_kernel: Optional[bool],
     return "cuda" if use_kernel else "torch"
 
 
-def _no_part(part):
-    if part is not None:
-        raise NotImplementedError(
-            "part= selects the sharded 1:n deployment, which comes with "
-            "the sharded slice of the port (ROADMAP.md queue A7)")
+def _resolve_sharded_backend(use_kernel: Optional[bool],
+                             backend: Optional[str], part) -> Optional[str]:
+    """Backend resolution for the iterative apps: a mesh partition means
+    the 1:n deployment — refuse a conflicting single-device backend rather
+    than silently ignoring ``part``."""
+    if part is None:
+        return _resolve_backend(use_kernel, backend)
+    if backend not in (None, "cuda-sharded"):
+        raise ValueError(
+            f"part= selects the sharded 1:n deployment; backend="
+            f"{backend!r} conflicts (pass backend='cuda-sharded' or drop "
+            "it)")
+    return "cuda-sharded"
 
 
 def fused_sweep(a, f, *, env=(), k=1, combine="sum", identity=None,
@@ -62,13 +75,14 @@ def jacobi_solve(u0, fxy, *, alpha=0.5, dx=1.0 / 512, tol=1e-4,
                  part=None, device=None):
     """Full Helmholtz Jacobi solve as one device-resident loop (fused
     sweep + max|Δu| reduce; the grid is a persistent halo frame on the
-    kernel backend).  Returns ``(u, max|Δu|, iters)``."""
-    _no_part(part)
+    kernel backend, one frame per shard under ``part=``).  Returns ``(u,
+    max|Δu|, iters)``."""
     loop = LoopOfStencilReduce(
         f=R.helmholtz_jacobi_taps(alpha, dx), k=1, combine="max",
         cond=lambda r: r < tol, delta=R.abs_delta, boundary="zero",
         max_iters=max_iters, unroll=unroll,
-        backend=_resolve_backend(use_kernel, backend), device=device)
+        backend=_resolve_sharded_backend(use_kernel, backend, part),
+        partition=part, device=device)
     res = loop.run(u0, env=(fxy,))
     return res.a, res.reduced, res.iters
 
@@ -87,16 +101,19 @@ def restore(frame, noisy_mask, *, beta=2.0, tol=1e-3, max_iters=64,
             device=None):
     """Restoration phase (§4.3): iterate the regularisation sweep until
     the mean absolute update over noisy pixels converges.  Returns
-    ``(restored, mean |Δ| over noisy pixels, iters)``."""
-    _no_part(part)
-    dev = resolve_device(device)
+    ``(restored, mean |Δ| over noisy pixels, iters)``.  ``part`` selects
+    the sharded 1:n deployment, as in :func:`jacobi_solve`."""
+    # under part= the loop runs on the partition's lead device
+    dev = part.lead if part is not None and device is None \
+        else resolve_device(device)
     frame, noisy_mask = to_device(frame, dev), to_device(noisy_mask, dev)
     npx = torch.clamp(noisy_mask.sum(), min=1.0)
     loop = LoopOfStencilReduce(
         f=R.restore_taps(beta), k=1, combine="sum",
         cond=lambda r: r / npx < tol, delta=R.abs_delta,
         boundary="reflect", max_iters=max_iters, unroll=unroll,
-        backend=_resolve_backend(use_kernel, backend), device=dev)
+        backend=_resolve_sharded_backend(use_kernel, backend, part),
+        partition=part, device=dev)
     res = loop.run(frame, env=(frame, noisy_mask))
     return res.a, res.reduced / npx, res.iters
 

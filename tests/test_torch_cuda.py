@@ -193,6 +193,58 @@ def test_cuda_farm_run_matches_solo_runs(cuda, backend, unroll, key):
 
 
 # ---------------------------------------------------------------------------
+# cuda-sharded: a mesh of the card (and of two cards) against one device
+# ---------------------------------------------------------------------------
+
+def sharded_against_single(devices, shape, boundary, T, fn="lopsided"):
+    """Run the sharded loop on a 2-D mesh of ``devices`` and the
+    single-device kernel loop on the first; assert equal iters, grids
+    within 1e-5, equal reduces and one launch a shard a check."""
+    from repro_torch.sharding import GridPartition, make_mesh
+    rows, cols = (2, 2) if len(devices) == 4 else (len(devices), 1)
+    part = GridPartition(make_mesh((rows, cols), ("data", "model"),
+                                   devices=devices),
+                         ("data", "model"), (0, 1))
+    a = torch.as_tensor(field(7, shape), device=devices[0])
+    kw = dict(f=PORT_FN[fn], k=1, combine="max", cond=lambda r: r < 1e-4,
+              delta=TR.abs_delta, boundary=boundary, max_iters=40,
+              unroll=T)
+    key = "multistep_sweep" if T > 1 else "stencil_sweep"
+    before = TK.launch_counts[key]
+    got = TP.LoopOfStencilReduce(backend="cuda-sharded", partition=part,
+                                 **kw).run(a)
+    launched = TK.launch_counts[key] - before
+    single = TP.LoopOfStencilReduce(
+        backend="cuda-multistep" if T > 1 else "cuda", device=devices[0],
+        **kw).run(a)
+    assert int(got.iters) == int(single.iters)
+    assert launched == len(devices) * int(got.iters) // T
+    assert got.a.device == torch.device(devices[0])
+    torch.testing.assert_close(got.a, single.a, rtol=0, atol=1e-5,
+                               equal_nan=True)
+    torch.testing.assert_close(got.reduced, single.reduced, rtol=0, atol=0,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("boundary", BOUNDARIES)
+@pytest.mark.parametrize("T", [1, 4])
+def test_cuda_sharded_mesh_of_one_card_matches_single_device(cuda,
+                                                             boundary, T):
+    sharded_against_single(["cuda:0"] * 4, (128, 256), boundary, T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 4])
+def test_cuda_sharded_across_two_cards(cuda, T):
+    """Shards on two cards: the strips cross by peer copies ordered
+    against both cards' streams (no synchronise in the loop)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    sharded_against_single(["cuda:0", "cuda:1"], (128, 256), "reflect", T)
+
+
+# ---------------------------------------------------------------------------
 # the streaming FarmEngine: chained = classic = solo runs, bit for bit; the
 # slot buffers stay where they were allocated; one launch a body step
 # ---------------------------------------------------------------------------

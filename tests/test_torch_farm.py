@@ -155,7 +155,7 @@ def test_s_variant_and_sharded_rejected():
         state_update=lambda s, a, it: s)
     with pytest.raises(ValueError, match="-s variant"):
         loop.farm_run(torch.zeros((2, 8, 128)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs a partition="):
         TP.LoopOfStencilReduce(f=TR.heat_taps(), cond=bool,
                                backend="cuda-sharded", device="cpu")
     sharded = tloop("cuda-sharded")

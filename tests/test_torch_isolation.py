@@ -38,7 +38,8 @@ def test_scan_covers_the_port():
             "interop.py", "chip_smoke.py", "helmholtz.py", "swa_attention.py",
             "attention.py", "layers.py", "transformer.py", "objective.py",
             "engine.py", "base.py", "gemma2_9b.py", "streaming.py",
-            "recovery.py", "faults.py", "video_restoration.py"} <= names
+            "recovery.py", "faults.py", "video_restoration.py",
+            "specs.py", "halo.py"} <= names
 
 
 @pytest.fixture

@@ -103,9 +103,17 @@ def test_fused_sweep_and_backend_axis():
         TO.fused_sweep(a, TR.heat_taps(0.1), device="cpu")
     with pytest.raises(ValueError, match="CUDA device"):
         TO.sobel(a, use_kernel=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded"):
-        TO.jacobi_solve(a, a, part=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded"):
-        TO.restore(a, a, part=object(), device="cpu")
+    # part= selects the sharded deployment, a kernel backend: a mesh of
+    # CPU devices is refused like a CPU tensor, and a conflicting
+    # single-device backend is refused with the reference's message
+    from repro_torch.sharding import GridPartition, make_mesh
+    part = GridPartition(make_mesh((2,), ("data",), devices=["cpu"] * 2),
+                         ("data",), (0,))
+    with pytest.raises(ValueError, match="CUDA device"):
+        TO.jacobi_solve(a, a, part=part)
+    with pytest.raises(ValueError, match="CUDA device"):
+        TO.restore(a, a, part=part)
+    with pytest.raises(ValueError, match="part= selects the sharded"):
+        TO.jacobi_solve(a, a, part=part, backend="torch")
     assert isinstance(TO.sobel(torch.as_tensor(a), device="cpu")[0],
                       torch.Tensor)

@@ -193,9 +193,17 @@ def test_validation_matches_reference_contract(monkeypatch):
     with pytest.raises(ValueError, match="unknown backend"):
         TP.LoopOfStencilReduce(f=jac, cond=bool, backend="pallas",
                                device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the sharded backend is ported: it needs a partition, and runs a
+    # kernel, so a mesh of CPU devices is refused
+    with pytest.raises(ValueError, match="needs a partition="):
         TP.LoopOfStencilReduce(f=jac, cond=bool, backend="cuda-sharded",
                                device="cpu")
+    from repro_torch.sharding import GridPartition, make_mesh
+    part = GridPartition(make_mesh((2,), ("data",), devices=["cpu"] * 2),
+                         ("data",), (0,))
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        TP.LoopOfStencilReduce(f=jac, cond=bool, backend="cuda-sharded",
+                               partition=part)
     # the temporal-blocking backend is ported: it constructs on a card
     # (a card is pretended here; construction launches nothing)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)

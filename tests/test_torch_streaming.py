@@ -202,13 +202,18 @@ def test_stream_runner_empty_ragged_and_lazy():
 
 
 def test_sharded_deployments_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="A7"):
-        TS.sharded_farm(lambda x: x, mesh=object())
-    with pytest.raises(NotImplementedError, match="A7"):
-        teng(tcount(), lanes=2, mesh=object())
+    # the generic tier runs: lanes split over the mesh axis, in order
+    from repro_torch.sharding import make_mesh
+    mesh = make_mesh((2,), ("data",), devices=["cpu"] * 2)
+    batch = torch.arange(8.0).reshape(4, 2)
+    out = TS.sharded_farm(lambda x: x * 2.0, mesh=mesh)(batch)
+    assert torch.equal(out, batch * 2.0)
+    # the engine tier over a mesh is queue A7b
+    with pytest.raises(NotImplementedError, match="A7b"):
+        teng(tcount(), lanes=2, mesh=mesh)
     loop = tcount()
     loop.backend = "cuda-sharded"
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A7b"):
         teng(loop, lanes=2)
 
 
