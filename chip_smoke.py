@@ -10,8 +10,9 @@ PyTorch version, and drives the port's main paths — the persistent-frame
 Loop-of-stencil-reduce on "cuda" and "cuda-multistep", the lane farm
 ``farm_run``, the paper's §4 apps, the streaming FarmEngine on the §4.3
 restoration stream, the sharded 1:n tier ("cuda-sharded") on meshes of
-the card, and the gemma2-9b scoring forward and greedy serving — on one
-CUDA card at full size:
+the card, the streaming FarmEngine over meshes of the card (lanes over a
+mesh axis, and the composed lanes x spatial farm), and the gemma2-9b
+scoring forward and greedy serving — on one CUDA card at full size:
 
   0. the card (nvidia-smi), torch/CUDA versions, kernel build time,
      registers and spills of the stencil kernel's Helmholtz, Sobel and
@@ -64,10 +65,31 @@ CUDA card at full size:
      sweep of wall and of device busy beside the single-device figures,
      device events and bytes exchanged a check — on one card this is
      what 1:n costs over 1:1, not a speed-up;
+ 16. phase 14's stream through FarmEngine over meshes of the card: (a)
+     8 lanes over "data" of ["cuda:0"] * 4 (2 slots a lane shard, each
+     shard its own loop): round, classic and chained on "cuda", chained
+     on "cuda-multistep" (unroll="auto"); (b) the composed lanes x
+     spatial farm on "cuda-sharded", ["cuda:0"] * 8 as (2, 4) ("data",
+     "model"), frames split by rows into 4 blocks of 270x1920, at unroll
+     1 and 4, round and continuous (the classic loop); (c) on (b) a
+     seeded fault plan, one NaN cell in one frame, and a stream killed
+     near the middle and resumed on the same mesh and on one device with
+     4 lanes; every index once a run, iters / statuses / grids / reduces
+     bit-equal to phase 14 (or, at T = 4, to single-device solo runs),
+     each run equal to its plain twin ((a) on "torch", (b) through the
+     same path with the kernels' plain versions: the emission sequence,
+     lane steps, waste and segments; grids within TOL_GRID), the NaN kept
+     in its lane, and a planted refill fault (one spatial shard's ghost
+     strip left stale after a slot refill) failing the gate; ms a frame of
+     wall and of device busy, launches and device events a lane-shard
+     step, strips and bytes exchanged a lane-shard step, host reads a
+     segment -- on one card what mesh farming costs, not a speed-up;
   5. per-kernel timings at the main path's shapes, each with its bound and
      the stencil kernel's launch choices (CTA tile, window slots, CTAs an
      SM, shared memory, registers); at 1080x1920 also the profiler's
      device time (the event timing there reads the host's issue rate);
+     both stencil kernels also on one spatial shard's lane stack of phase
+     16's composed farm (4 x 270x1920, restore, T = 1 and 4);
  11. swa_attention vs plain on both routes (bf16 at hd 64/128/256 on the
      wgmma kernel, the rest on the CUDA-core one): the reference test's
      shapes (GQA, softcap, every head_dim) in f32 within 2e-5 (the share
@@ -103,8 +125,8 @@ CUDA card at full size:
      1080x1920), the wrapper's choice marked.
 
 Every phase runs, at the sizes above, in the order listed.  Phases 2-4, 9,
-10, 14 and 15 are the stencil main path: the kernel launch counts are
-zeroed just before phase 2 and read just after phase 15 (the single-step
+10 and 14-16 are the stencil main path: the kernel launch counts are
+zeroed just before phase 2 and read just after phase 16 (the single-step
 launches also by shape, the multistep launches by T).  Phases 12-13 are
 the LM main path: the counts (the attention's by route) are zeroed just
 before phase 12 and read just after phase 13; the bf16 layers must take the wgmma
@@ -117,6 +139,7 @@ before printing any result.
     python3 chip_smoke.py
 """
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -736,6 +759,84 @@ def phase5_multistep(gen, size, rate):
     return rows
 
 
+def phase5_shard(gen, rate, device="cuda"):
+    """Both stencil kernels at phase 16's shard shape, one spatial shard's
+    lane stack of the composed farm: 4 lanes of a 270x1920 block of the
+    restoration sweep (two env fields, reflect, max of |new - old|), the
+    single sweep at T = 1 and the multistep kernel at T = 4 with a middle
+    shard's bounds (rows continue into the neighbours: ±2^30), each held
+    against its plain version, timed, with its bound."""
+    import torch
+    from repro_torch.core.frames import (frame_spec, lane_env_frames,
+                                         make_lane_frames)
+    from repro_torch.kernels import ref as R
+    from repro_torch.kernels.multistep import (SENTINEL,
+                                               stencil2d_multistep_framed,
+                                               stencil2d_multistep_framed_ref)
+    from repro_torch.kernels.stencil2d import (alloc_scratch, last_launch,
+                                               stencil2d_fused_framed,
+                                               stencil2d_fused_framed_ref)
+    lanes, m, n = SHARD_STACK
+    f = R.restore_taps(2.0)
+    rows = {}
+    for T in (1, 4):
+        spec = frame_spec(m, n, k=1, sweeps=T)
+
+        def rand():
+            return torch.rand((lanes, m, n), generator=gen, device=device)
+        frames = make_lane_frames(rand(), spec, "reflect")
+        env = tuple(lane_env_frames(rand(), spec, "reflect", halo=T > 1)
+                    for _ in range(2))
+        out = torch.zeros_like(frames)
+        scratch = alloc_scratch(spec, device, lanes)
+        live = torch.ones(lanes, dtype=torch.bool, device=device)
+        kw = dict(env_framed=env, combine="max", measure=R.abs_delta,
+                  live=live)
+        if T == 1:
+            kernel, plain = stencil2d_fused_framed, stencil2d_fused_framed_ref
+        else:
+            p = spec.pad
+            kw.update(T=T, boundary="reflect",
+                      domain_bounds=(-SENTINEL, SENTINEL, p, p + n))
+            kernel = stencil2d_multistep_framed
+            plain = stencil2d_multistep_framed_ref
+        got, red_k = kernel(frames, f, spec, **kw)
+        want, red_p = plain(frames, f, spec, **kw)
+        p = spec.pad
+        err = max_err(got[:, p:p + m, p:p + n], want[:, p:p + m, p:p + n])
+        if not (err <= (0.0 if T == 1 else TOL_GRID) and all(
+                same_scalar(x, y, 0.0)
+                for x, y in zip(red_k.tolist(), red_p.tolist()))):
+            raise AssertionError(f"phase5 shard stack T={T} kernel/plain "
+                                 f"mismatch: {err!r} {red_k!r} {red_p!r}")
+        del got, want
+
+        def run():
+            return kernel(frames, f, spec, out=out, scratch=scratch, **kw)
+        ms_k = cuda_ms(run, iters=20)
+        info = last_launch()
+        dev = device_us(run)
+        ms_p = cuda_ms(lambda: plain(frames, f, spec, out=out, **kw),
+                       iters=3, warmup=1)
+        # least work: the frame and the two env fields read once, the frame
+        # written once; T sweeps of 20 operations a cell
+        cells = lanes * m * n
+        t_bytes, t_ops = 4 * cells * 4 / rate, 20 * T * cells / FP32_RATE
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        name = "stencil_sweep" if T == 1 else "multistep_sweep"
+        rows[T] = dict(ms=ms_k, device_us=dev, plain_ms=ms_p,
+                       bound_ms=bound_ms, bound_by=by, err=err, info=info)
+        log(f"[phase5] {name} restore lane stack {lanes} x {m}x{n} (one "
+            f"spatial shard of phase 16's composed farm) T={T}: kernel "
+            f"{ms_k:.4f} ms (device {dev:.2f} us), plain {ms_p:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({by}: 3 fields read + 1 written), "
+            f"max_abs_err vs plain {err!r}; {launch_note(info)}")
+        del frames, out, env
+        torch.cuda.empty_cache()
+    return rows
+
+
 def profiled(fn):
     """Run ``fn`` under torch.profiler: (wall seconds, device-busy seconds,
     [(device µs, count, kernel name)] sorted by time)."""
@@ -1209,7 +1310,7 @@ def stream_source(seed, shape, frames):
     return [c for c, _ in pairs], [n for _, n in pairs], levels
 
 
-def phase14(seed, shape=STREAM_SHAPE, frames=STREAM_FRAMES,
+def phase14(seed, keep, shape=STREAM_SHAPE, frames=STREAM_FRAMES,
             lanes=STREAM_LANES, segment=STREAM_SEGMENT, device="cuda"):
     """The §4.3 stream, pipe(read, detect, ofarm(restore), write), through
     the port's FarmEngine: AMF detection (kmax 3) as ``prep`` on the
@@ -1221,7 +1322,8 @@ def phase14(seed, shape=STREAM_SHAPE, frames=STREAM_FRAMES,
     (e) are held against their plain twins: the same prepped items through
     the same streams with the restoration on "torch" (at (d)'s T for (d)),
     and a planted fault shows the gate's power.  Every check of the phase
-    raises on failure."""
+    raises on failure.  The stream, (c)'s and (d)'s results, (d)'s T and
+    the prepped items go into ``keep`` for phase 16."""
     import dataclasses
     import shutil
     import tempfile
@@ -1577,6 +1679,10 @@ def phase14(seed, shape=STREAM_SHAPE, frames=STREAM_FRAMES,
     rows["T"] = T
     rows["err_plain"] = err_plain
     rows["multistep_launches"] = S.launch_counts["multistep_sweep"] - ms0
+    keep[14] = dict(noisy=noisy, cleans=cleans, c=res["c"], d=res["d"],
+                    T=T, prepped=prepped, ms_frame=t_c * 1e3 / frames,
+                    busy_ms_frame=busy["c"][1] * 1e3 / frames,
+                    plan_seed=seed)
     return rows
 
 
@@ -1841,6 +1947,434 @@ def phase15(keep):
                   + [errb, errd] + [r["err"] for r in rows_c.values()])
     return dict(rows=rows, restore=rows_c, planted=planted, err=err_all,
                 solve_s=tb, solve_iters=int(ib))
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the §4.3 stream through FarmEngine over meshes of the one card
+# ---------------------------------------------------------------------------
+
+# (a) 8 lanes over "data" of a (4,) mesh: 2 slots a lane shard; (b) the
+# composed farm: 4 lanes over "data" of a (2, 4) mesh, each frame split by
+# rows over "model" into 4 blocks of 270x1920.  Both repeat the one card.
+LANE_MESH, COMPOSED_MESH = (4,), (2, 4)
+SHARD_STACK = (4, 270, 1920)     # one spatial shard's lane stack in (b)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """A context in which the stencil kernels' wrappers run their plain
+    versions on CUDA tensors (the plain twin of a kernel-only path: the
+    composed farm has no "torch" backend, as the reference's has no "jnp"
+    one)."""
+    from repro_torch.kernels import multistep as M
+    from repro_torch.kernels import stencil2d as S
+    real = S.stencil2d_fused_framed, M.stencil2d_multistep_framed
+    S.stencil2d_fused_framed = (
+        lambda *a, scratch=None, tile=None, **k:
+        S.stencil2d_fused_framed_ref(*a, **k))
+    M.stencil2d_multistep_framed = (
+        lambda *a, scratch=None, tile=None, **k:
+        M.stencil2d_multistep_framed_ref(*a, **k))
+    try:
+        yield
+    finally:
+        S.stencil2d_fused_framed, M.stencil2d_multistep_framed = real
+
+
+def phase16(keep, lanes=STREAM_LANES, segment=STREAM_SEGMENT,
+            device="cuda"):
+    """Phase 14's stream through FarmEngine over meshes of the one card:
+    (a) lanes over a mesh axis, ``make_mesh((4,), ("data",),
+    devices=["cuda:0"] * 4)``: round, classic and chained on "cuda" and
+    chained on "cuda-multistep" (unroll="auto"); (b) the composed lanes x
+    spatial farm on "cuda-sharded" over ``make_mesh((2, 4), ("data",
+    "model"), devices=["cuda:0"] * 8)`` with the frames split by rows over
+    "model", at unroll 1 and 4, round and continuous (continuous takes the
+    classic loop); (c) on (b): a seeded fault plan (one NaN lane, one
+    stall a lane shard, two corrupt items, max_attempts 2), one NaN cell
+    in one frame, and a stream killed near the middle and resumed on the
+    same mesh and on one device with 4 lanes.  Every index emits once a
+    run; iters, statuses and grids equal phase 14's (bit for bit) or the
+    single-device solo runs at T = 4; every run equals its plain twin
+    (the emission sequence, lane steps, waste and segments; grids within
+    TOL_GRID); the NaN stays in its lane; a planted refill fault (one
+    spatial shard's ghost strip left stale after a slot refill) fails the
+    gate.  Prints ms a frame of wall and of device busy, launches and
+    device events a lane-shard step (one step of one lane shard's loop),
+    strips and bytes exchanged a lane-shard step, host reads a segment.  On one card this is what mesh farming costs
+    over phase 14's one-device farm, not a speed-up."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core import executor as E
+    from repro_torch.core import frames as F
+    from repro_torch.core.reduce import Sentinel
+    from repro_torch.core.streaming import FarmEngine, item_status
+    from repro_torch.examples.video_restoration import (detector,
+                                                        restore_loop)
+    from repro_torch.kernels import stencil2d as S
+    from repro_torch.resilience import (FaultPlan, PreemptionError,
+                                        RecoveryConfig)
+    from repro_torch.sharding import GridPartition, make_mesh
+
+    k14 = keep[14]
+    noisy, prepped, T14 = k14["noisy"], k14["prepped"], k14["T"]
+    frames = len(noisy)
+    mesh_a = make_mesh(LANE_MESH, ("data",), devices=[device] * 4)
+    mesh_b = make_mesh(COMPOSED_MESH, ("data", "model"),
+                       devices=[device] * 8)
+    part = GridPartition(mesh_b, ("model",), (0,))
+    detect = detector("cuda", device)
+    prep_launches = [0]
+
+    def prep(frame):
+        before = S.launch_counts["stencil_sweep"]
+        out = detect(frame)
+        prep_launches[0] += S.launch_counts["stencil_sweep"] - before
+        return out
+
+    sentinel = Sentinel(nan=True)
+    fails, rows = [], {}
+
+    def engine(backend, mesh, unroll=1, plan=None, n=lanes, prep=prep,
+               **kw):
+        loop = restore_loop(
+            backend, device, unroll=unroll, sentinel=sentinel,
+            partition=part if backend == "cuda-sharded" else None)
+        if plan is not None:
+            loop = plan.instrument(loop)
+        return FarmEngine(loop, lanes=n, prep=prep, segment=segment,
+                          mesh=mesh, device=device, **kw)
+
+    def run(label, eng, continuous=True, source=None, **kw):
+        """One stream: its emissions by index, wall, restoration launches
+        (detection's apart) and the exchange's counts."""
+        src = noisy if source is None else source
+        got = []
+        before, x0 = dict(S.launch_counts), dict(F.exchange_counts)
+        prep_launches[0] = 0
+        secs = wall(lambda: eng.run(src, got.append, continuous=continuous,
+                                    **kw))[1]
+        idx = sorted(int(r.index) if continuous else i
+                     for i, r in enumerate(got))
+        if idx != list(range(len(src))):
+            fails.append(f"{label}: an index was not emitted exactly once")
+        if eng.loop.backend != "torch" and \
+                eng.buffer_pointers() != eng.bound_pointers:
+            fails.append(f"{label}: a slot buffer was re-allocated")
+        launches = sum(S.launch_counts[k] - before[k] for k in before) \
+            - prep_launches[0]
+        return dict(label=label, eng=eng, got=got, secs=secs,
+                    res={int(r.index) if continuous else i: r
+                         for i, r in enumerate(got)},
+                    launches=launches,
+                    xch={k: F.exchange_counts[k] - x0[k] for k in x0})
+
+    def seq(r):
+        if r["got"] and hasattr(r["got"][0], "index"):
+            return [(int(x.index), x.status, int(x.attempts), int(x.iters))
+                    for x in r["got"]]
+        return [(i, int(x.iters)) for i, x in enumerate(r["got"])]
+
+    def lane_stats(eng):
+        return (eng.lane_steps, eng.wasted_lane_steps,
+                eng.stats["segments"])
+
+    def status(x):
+        """A StreamResult's status, or a LoopResult's from its health."""
+        return getattr(x, "status", None) or item_status(
+            int(x.health), int(x.iters), 50)
+
+    def same_as(r, want, label):
+        """Statuses, iters, grids and reduces bit for bit, item by item."""
+        for i in range(frames):
+            g, w = r["res"][i], want[i]
+            st_g, st_w = status(g), status(w)
+            if (st_g, int(g.iters)) != (st_w, int(w.iters)) or not (
+                    torch.equal(g.a, w.a.to(g.a.device))
+                    and torch.equal(g.reduced.reshape(()),
+                                    w.reduced.reshape(()).to(
+                                        g.reduced.device))):
+                fails.append(f"{label} item {i}: {st_g}/{int(g.iters)} vs "
+                             f"{st_w}/{int(w.iters)}, max|d| "
+                             f"{max_err(g.a, w.a)!r}")
+                return False
+        return True
+
+    def twin_check(r, t, label):
+        """A run against its plain twin: the emission sequence and lane
+        stats equal, grids and reduces within TOL_GRID."""
+        err = 0.0
+        for i in range(frames):
+            if r["res"][i].a is not None:
+                err = max(err, max_err(r["res"][i].a, t["res"][i].a),
+                          max_err(r["res"][i].reduced, t["res"][i].reduced))
+        ok = (seq(r) == seq(t) and lane_stats(r["eng"]) ==
+              lane_stats(t["eng"]) and err <= TOL_GRID)
+        if not ok:
+            fails.append(f"{label} vs its plain twin: sequences equal "
+                         f"{seq(r) == seq(t)}, lane stats "
+                         f"{lane_stats(r['eng'])} / {lane_stats(t['eng'])},"
+                         f" max|d| {err!r}")
+        return err
+
+    # warm-up: one stream on each mesh (the first launches at these shapes)
+    for mesh, be in ((mesh_a, "cuda"), (mesh_b, "cuda-sharded")):
+        engine(be, mesh).run(noisy[:lanes], lambda r: None,
+                             continuous=True)
+
+    # --- (a) lanes over the (4,) mesh axis -------------------------------
+    out = {}
+    out["a round"] = run("(a) round", engine("cuda", mesh_a), False)
+    out["a classic"] = run("(a) classic",
+                           engine("cuda", mesh_a, chained=False))
+    out["a chained"] = run("(a) chained", engine("cuda", mesh_a))
+    eng_ms = engine("cuda-multistep", mesh_a, unroll="auto")
+    out["a chained ms"] = run("(a) chained cuda-multistep", eng_ms)
+    T_a = eng_ms._loop.unroll
+    # --- (b) the composed lanes x spatial farm ---------------------------
+    for T in (1, 4):
+        out[f"b round T={T}"] = run(
+            f"(b) round T={T}", engine("cuda-sharded", mesh_b, unroll=T),
+            False)
+        out[f"b cont T={T}"] = run(
+            f"(b) continuous T={T}",
+            engine("cuda-sharded", mesh_b, unroll=T))
+
+    # against phase 14 (bit for bit) and, at T = 4, the single-device solo
+    # runs of the same prepped items on "cuda-multistep"
+    solo4 = []
+    loop4 = restore_loop("cuda-multistep", device, unroll=4,
+                         sentinel=sentinel)
+    for a0, *envs in prepped:
+        solo4.append(loop4.run(a0, env=tuple(envs)))
+    for key in ("a round", "a classic", "a chained", "b round T=1",
+                "b cont T=1"):
+        same_as(out[key], k14["c"], f"{key} vs phase 14 (c)")
+    if T_a != T14:
+        fails.append(f"(a) cuda-multistep resolved T={T_a}, phase 14 {T14}")
+    else:
+        same_as(out["a chained ms"], k14["d"],
+                f"(a) chained T={T_a} vs phase 14 (d)")
+    for key in ("b round T=4", "b cont T=4"):
+        same_as(out[key], dict(enumerate(solo4)),
+                f"{key} vs single-device T=4 solo runs")
+
+    # the plain twins: (a) on "torch" on the same mesh, (b) through the
+    # same composed path with the kernels' plain versions; the prepped
+    # items as tuple items (the default prep splits them)
+    twins, err_twin = {}, {}
+    for key, (be, mesh, T, cont, kw) in {
+            "a round": ("torch", mesh_a, 1, False, {}),
+            "a classic": ("torch", mesh_a, 1, True, dict(chained=False)),
+            "a chained": ("torch", mesh_a, 1, True, {}),
+            "a chained ms": ("torch", mesh_a, T_a, True, {}),
+            "b round T=1": ("cuda-sharded", mesh_b, 1, False, {}),
+            "b cont T=1": ("cuda-sharded", mesh_b, 1, True, {}),
+            "b round T=4": ("cuda-sharded", mesh_b, 4, False, {}),
+            "b cont T=4": ("cuda-sharded", mesh_b, 4, True, {})}.items():
+        with (plain_kernels() if be == "cuda-sharded"
+              else contextlib.nullcontext()):
+            twins[key] = run(f"{key} twin",
+                             engine(be, mesh, unroll=T, prep=None, **kw),
+                             cont, source=prepped)
+        err_twin[key] = twin_check(out[key], twins[key], key)
+
+    # --- (c) faults and recovery on (b) ----------------------------------
+    plan = FaultPlan.seeded(k14["plan_seed"], lanes=lanes // 2, n_nan=1,
+                            n_stall=1, n_corrupt=2, n_items=frames)
+    c_f = run("(c) faults", engine("cuda-sharded", mesh_b, plan=plan,
+                                   max_attempts=2),
+              source=list(plan.corrupt_stream(noisy)))
+    with plain_kernels():
+        c_ft = run("(c) faults twin", engine(
+            "cuda-sharded", mesh_b, plan=plan, max_attempts=2, prep=None),
+            source=list(plan.corrupt_stream(prepped)))
+    fault_keys = ("retries", "rejected", "quarantined_slots", "refills",
+                  "segments")
+    if seq(c_f) != seq(c_ft) or [c_f["eng"].stats[k] for k in fault_keys] \
+            != [c_ft["eng"].stats[k] for k in fault_keys]:
+        fails.append("(c) faults and its plain twin differ")
+    bad = set(plan.corrupt_indices)
+    ref_b = out["b cont T=1"]["res"]
+    own_fails = sum(1 for i in range(frames)
+                    if i not in bad and ref_b[i].status != "ok")
+    for i in range(frames):
+        e, c = c_f["res"][i], ref_b[i]
+        if i in bad:
+            ok = (e.status, e.attempts, e.a) == ("rejected", 0, None)
+        elif e.status == "ok":
+            ok = (c.status == "ok" and int(e.iters) == int(c.iters)
+                  and torch.equal(e.a, c.a)
+                  and torch.equal(e.reduced, c.reduced))
+        else:
+            ok = e.attempts == 2
+        if not ok:
+            fails.append(f"(c) faults item {i}: {e.status}/{e.attempts}")
+    st = c_f["eng"].stats
+    if st["retries"] <= own_fails or st["rejected"] != len(bad):
+        fails.append(f"(c) faults: retries {st['retries']} rejected "
+                     f"{st['rejected']}")
+    # one NaN cell in one frame's prepped grid: that item is poisoned, its
+    # neighbours bit-equal to the fault-free run
+    j = frames // 2
+    nan_src = list(prepped)
+    a0 = prepped[j][0].clone()
+    a0[a0.shape[0] // 8, a0.shape[1] // 2] = float("nan")
+    nan_src[j] = (a0, *prepped[j][1:])
+    c_nan = run("(c) NaN cell", engine("cuda-sharded", mesh_b, prep=None,
+                                       check_finite=False), source=nan_src)
+    if c_nan["res"][j].status != "poisoned":
+        fails.append(f"(c) NaN item {j}: {c_nan['res'][j].status}")
+    for i in range(frames):
+        if i != j and not (
+                c_nan["res"][i].status == ref_b[i].status
+                and torch.equal(c_nan["res"][i].a, ref_b[i].a)
+                and torch.equal(c_nan["res"][i].reduced, ref_b[i].reduced)):
+            fails.append(f"(c) NaN leaked into item {i}: "
+                         f"{c_nan['res'][i].status}")
+    # killed near the middle, resumed on the same mesh and on one device
+    tmp = tempfile.mkdtemp(prefix="phase16_recovery_")
+    try:
+        # fsync off: phase 14 (f) measures durable recovery; here the
+        # resume across meshes is what is checked
+        rec = RecoveryConfig(f"{tmp}/run", snapshot_every=4, fsync=False)
+        kill_at = max(2, out["b cont T=1"]["eng"].stats["segments"] // 2)
+        first = []
+        try:
+            engine("cuda-sharded", mesh_b).run(
+                noisy, first.append, continuous=True, recovery=rec,
+                on_segment=FaultPlan(lanes=1, preempt_at_segment=kill_at)
+                .preempt_hook(mode="raise"))
+            fails.append("(c) the preemption never fired")
+        except PreemptionError:
+            pass
+        shutil.copytree(f"{tmp}/run", f"{tmp}/one")
+        resumed = {}
+        for where, eng, d in (
+                ("the same mesh", engine("cuda-sharded", mesh_b), "run"),
+                ("one device, 4 lanes",
+                 engine("cuda", None, n=4), "one")):
+            r = run(f"(c) resumed on {where}", eng, recovery=RecoveryConfig(
+                f"{tmp}/{d}", snapshot_every=4, fsync=False), resume=True)
+            same_as(r, k14["c"], f"(c) resumed on {where} vs phase 14")
+            if eng.stats["replayed_items"] != len(first) or \
+                    eng.stats["recovered_occupants"] == 0:
+                fails.append(f"(c) resumed on {where}: replayed "
+                             f"{eng.stats['replayed_items']} of "
+                             f"{len(first)}")
+            resumed[where] = r
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the gate's power: after a slot refill, spatial shard 1's top ghost
+    # strip of the refilled lane is left as the previous occupant had it
+    real_refill = E.refill_slot_frame_sharded
+
+    def stale_refill(frames_, interiors, li, sspec, boundary):
+        p = sspec.local.pad
+        stale = frames_[1][li, 0:p].clone()
+        real_refill(frames_, interiors, li, sspec, boundary)
+        frames_[1][li, 0:p].copy_(stale)
+        return frames_
+    E.refill_slot_frame_sharded = stale_refill
+    try:
+        planted = run("(b) planted refill fault",
+                      engine("cuda-sharded", mesh_b))
+    finally:
+        E.refill_slot_frame_sharded = real_refill
+    err_planted = max(max_err(planted["res"][i].a, k14["c"][i].a)
+                      for i in range(frames))
+    if err_planted <= TOL_GRID:
+        fails.append(f"the planted refill fault passes the gate "
+                     f"(max|d| {err_planted!r})")
+
+    # device busy, events a shard step (one run each, profiled)
+    busy = {}
+    for key, be, mesh, kw in (("a chained", "cuda", mesh_a, {}),
+                              ("b cont T=1", "cuda-sharded", mesh_b, {})):
+        eng = engine(be, mesh, **kw)
+        secs, dev_s, prof_rows = profiled(lambda: eng.run(
+            noisy, lambda r: None, continuous=True))
+        shard_steps = eng.lane_steps // (lanes // mesh.shape["data"])
+        busy[key] = dict(wall=secs, busy=dev_s,
+                         events=event_counts(prof_rows),
+                         shard_steps=shard_steps)
+
+    # --- readings ---------------------------------------------------------
+    for key, r in out.items():
+        eng, st = r["eng"], r["eng"].stats
+        T = eng._loop.unroll
+        local = lanes // eng._nshards
+        shard_steps = eng.lane_steps // (local * T)
+        seg = max(st["segments"] or st["rounds"], 1)
+        row = dict(ms_frame=r["secs"] * 1e3 / frames,
+                   lane_steps=eng.lane_steps,
+                   wasted=eng.wasted_lane_steps, segments=st["segments"],
+                   launches_per_shard_step=r["launches"] / shard_steps,
+                   strips_per_shard_step=r["xch"]["strips"] / shard_steps,
+                   bytes_per_shard_step=r["xch"]["cells"] * 4 / shard_steps,
+                   host_reads_per_segment=st["host_reads"] / seg,
+                   err_twin=err_twin[key],
+                   twin_ms_frame=twins[key]["secs"] * 1e3 / frames, T=T)
+        rows[key] = row
+        log(f"[phase16] {key}: wall {r['secs'] * 1e3:.1f} ms "
+            f"({row['ms_frame']:.3f} ms/frame; phase 14 (c) "
+            f"{k14['ms_frame']:.3f}); T={T} lane steps {eng.lane_steps} "
+            f"wasted {eng.wasted_lane_steps} segments {st['segments']} "
+            f"refills {st['refills']}; {row['launches_per_shard_step']:.2f}"
+            f" restoration launches a lane-shard step ({shard_steps} "
+            f"lane-shard steps), {row['strips_per_shard_step']:.2f} strips "
+            f"and {row['bytes_per_shard_step']:.0f} B exchanged a "
+            f"lane-shard step (refills included); host reads "
+            f"{st['host_reads']} ({row['host_reads_per_segment']:.2f} a "
+            f"{'segment' if st['segments'] else 'round'}); plain twin "
+            f"max|d| {err_twin[key]!r}, "
+            f"{row['twin_ms_frame']:.3f} ms/frame")
+    for key, b in busy.items():
+        rows[key].update(busy_ms_frame=b["busy"] * 1e3 / frames,
+                         profiled_ms_frame=b["wall"] * 1e3 / frames,
+                         events_per_shard_step={
+                             k: v / b["shard_steps"]
+                             for k, v in b["events"].items()})
+        ev = rows[key]["events_per_shard_step"]
+        log(f"[phase16] {key} under the profiler: wall "
+            f"{b['wall'] * 1e3 / frames:.3f} ms/frame, device busy "
+            f"{b['busy'] * 1e3 / frames:.3f} ms/frame (phase 14 (c) "
+            f"{k14['busy_ms_frame']:.3f}; idle share "
+            f"{1 - b['busy'] / b['wall']:.3f}); device events a lane-shard "
+            f"step "
+            f"{ev['total']:.2f} (stencil kernels {ev['stencil']:.2f}, "
+            f"memcpy {ev['copies']:.2f}, other {ev['other']:.2f}); the "
+            f"detection's events included")
+    st = c_f["eng"].stats
+    log(f"[phase16] (c) faults, plan {plan} (local lanes of each lane "
+        f"shard): statuses {[c_f['res'][i].status[:4] for i in range(frames)]}"
+        f" retries {st['retries']} rejected {st['rejected']} quarantined "
+        f"slots {st['quarantined_slots']}; its plain twin's sequence and "
+        f"counts equal; NaN cell in item {j}: "
+        f"{c_nan['res'][j].status}, the other {frames - 1} items bit-equal "
+        f"to the fault-free run; killed at segment {kill_at} after "
+        f"{len(first)} emissions, resumed on "
+        + ", ".join(f"{w} ({r['secs'] * 1e3:.1f} ms, replayed "
+                    f"{r['eng'].stats['replayed_items']}, recovered "
+                    f"{r['eng'].stats['recovered_occupants']})"
+                    for w, r in resumed.items())
+        + " -- bit-equal to phase 14")
+    log(f"[phase16] planted refill fault (spatial shard 1's ghost strip "
+        f"of a refilled lane left stale): max|d| vs phase 14 "
+        f"{err_planted!r} against {TOL_GRID}: "
+        + ("fails the gate (as it must)" if err_planted > TOL_GRID
+           else "PASSES THE GATE"))
+    log("[phase16] every mesh repeats one card: these numbers are what "
+        "mesh farming costs over phase 14's one-device farm, not a "
+        "speed-up; two cards: not measured")
+    if fails:
+        raise AssertionError("phase16: " + "; ".join(fails))
+    return dict(rows=rows, planted=err_planted, T_a=T_a,
+                err=max(err_twin.values()))
 
 
 # ---------------------------------------------------------------------------
@@ -2391,6 +2925,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    t_script = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2410,13 +2945,16 @@ def main(argv=None) -> int:
     rate = mem_rate(card.split(",")[0])
     phase1(gen)
     err8, err8_bf16 = phase8(gen)
-    zero_counts()                          # main path: 2-4, 9, 10, 14, 15
+    zero_counts()                      # main path: 2-4, 9, 10, 14-16
     by_phase, ms_by_phase, keep = {}, {}, {}
 
     def counted(phase, fn, *a):
-        """Run a main-path phase; note its launches of both entries."""
+        """Run a main-path phase; note its launches of both entries and
+        its seconds."""
         before = dict(S.launch_counts)
+        t0 = time.perf_counter()
         out = fn(*a)
+        log(f"[main] phase {phase} took {time.perf_counter() - t0:.1f} s")
         by_phase[phase] = S.launch_counts["stencil_sweep"] \
             - before["stencil_sweep"]
         ms_by_phase[phase] = S.launch_counts["multistep_sweep"] \
@@ -2427,13 +2965,16 @@ def main(argv=None) -> int:
     err4 = counted(4, phase4, gen, keep)
     err9, rows9 = counted(9, phase9, gen, SIZE, ms_loop, keep)
     rows10 = counted(10, phase10, gen)
-    rows14 = counted(14, phase14, args.seed)
+    rows14 = counted(14, phase14, args.seed, keep)
     rows15 = counted(15, phase15, keep)
+    rows16 = counted(16, phase16, keep)
     keep.clear()
     launches = dict(S.launch_counts)
-    log(f"[main] launches on the main path (phases 2-4, 9, 10, 14, 15): "
+    log(f"[main] launches on the main path (phases 2-4, 9, 10, 14-16): "
         f"{launches}; phase 15 (sharded): stencil_sweep {by_phase[15]}, "
-        f"multistep_sweep {ms_by_phase[15]}")
+        f"multistep_sweep {ms_by_phase[15]}; phase 16 (mesh farm): "
+        f"stencil_sweep {by_phase[16]}, multistep_sweep "
+        f"{ms_by_phase[16]}")
     ss_by_shape = {
         f"Helmholtz {SIZE}x{SIZE} (phases 2, 3, 9)":
             by_phase[2] + by_phase[3] + by_phase[9],
@@ -2443,7 +2984,11 @@ def main(argv=None) -> int:
         f"{STREAM_LANES} lanes (phase 14)": by_phase[14],
         f"Helmholtz {SIZE}x{SIZE} on 4 shards of one card, restore "
         f"1080x1920 on 4 shards (phase 15, the planted faults' launches "
-        f"included)": by_phase[15]}
+        f"included)": by_phase[15],
+        f"{STREAM_FRAMES} x 1080x1920 stream over meshes of one card: AMF "
+        f"k=3 prep, restore on 2-lane stacks of 1080x1920 (lane mesh) and "
+        f"4-lane stacks of 270x1920 (composed), the plain twins' runs "
+        f"launching nothing (phase 16)": by_phase[16]}
     log(f"[main] stencil_sweep launches by shape: {ss_by_shape}")
     ms_by_T = {f"T={T} (phase 9, Helmholtz {SIZE}x{SIZE})": r["launches"]
                for T, r in rows9.items()}
@@ -2454,6 +2999,8 @@ def main(argv=None) -> int:
     ms_by_T[f"T=4 (phase 15, Helmholtz {SIZE}x{SIZE} on 4 shards of one "
             f"card, the planted fault's launches included)"] = \
         ms_by_phase[15]
+    ms_by_T[f"T={rows16['T_a']} and T=4 (phase 16, the stream on the lane "
+            f"mesh and on 4-lane stacks of 270x1920)"] = ms_by_phase[16]
     log(f"[main] multistep_sweep launches by T: {ms_by_T}")
     for name, count in launches.items():
         if count == 0:
@@ -2461,6 +3008,7 @@ def main(argv=None) -> int:
     rows5s = phase5(gen, SIZE, rate)
     helm5 = rows5s["helmholtz"]
     rows5 = phase5_multistep(gen, SIZE, rate)
+    rows5shard = phase5_shard(gen, rate)
     rows11, err11, by_hd11 = phase11(gen, rate)
     zero_counts()                                  # main path: 12-13
     r12, r13, r12f, r13f = lm_phases(gen)
@@ -2532,7 +3080,8 @@ def main(argv=None) -> int:
         "launches": launches["stencil_sweep"],
         "max_abs_err": max([err2, err3, err4, rows10["cuda"]["err"],
                             rows14["err_plain"]["c"],
-                            rows14["err_plain"]["e"], rows15["err"]]
+                            rows14["err_plain"]["e"], rows15["err"],
+                            rows16["err"], rows5shard[1]["err"]]
                            + [r["err"] for r in rows5s.values()]),
         "ms": helm5["ms"],
         "plain_ms": helm5["plain_ms"],
@@ -2551,8 +3100,12 @@ def main(argv=None) -> int:
                      for label, r in rows5s.items()},
         "bf16_max_abs_err": err8_bf16,
         "sharded": sharded_entry(rows15, 1),
-        "phases": {"launched": [2, 3, 4, 9, 10, 14, 15],
-                   "held_against_plain": [1, 2, 3, 4, 5, 8, 10, 14, 15]},
+        "shard_stack": {k: rows5shard[1][k] for k in (
+            "ms", "device_us", "plain_ms", "bound_ms", "bound_by")},
+        "mesh_farm": rows16["rows"],
+        "phases": {"launched": [2, 3, 4, 9, 10, 14, 15, 16],
+                   "held_against_plain": [1, 2, 3, 4, 5, 8, 10, 14, 15,
+                                          16]},
     }, {
         "name": "multistep_sweep",
         "route": "cuda",
@@ -2561,7 +3114,8 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/multistep.py:101",
         "launches": launches["multistep_sweep"],
         "max_abs_err": max([err8, err9, rows10["cuda-multistep"]["err"],
-                            rows14["err_plain"]["d"], rows15["err"]]
+                            rows14["err_plain"]["d"], rows15["err"],
+                            rows16["err"], rows5shard[4]["err"]]
                            + [r["err"] for r in rows5.values()]),
         "ms": rows5[4]["ms"],
         "plain_ms": rows5[4]["plain_ms"],
@@ -2579,11 +3133,14 @@ def main(argv=None) -> int:
                  for T, r in rows5.items()},
         "bf16_max_abs_err": err8_bf16,
         "sharded": sharded_entry(rows15, 4),
-        "phases": {"launched": [9, 10, 14, 15],
-                   "held_against_plain": [5, 8, 9, 10, 14, 15]},
+        "shard_stack_T4": {k: rows5shard[4][k] for k in (
+            "ms", "device_us", "plain_ms", "bound_ms", "bound_by")},
+        "phases": {"launched": [9, 10, 14, 15, 16],
+                   "held_against_plain": [5, 8, 9, 10, 14, 15, 16]},
     }, swa_wgmma, swa_core]}))
     phase6(gen, SIZE)
     phase7(gen, SIZE, rate)
+    log(f"[main] the script took {time.perf_counter() - t_script:.1f} s")
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

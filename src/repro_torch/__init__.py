@@ -9,7 +9,9 @@ sharded over a device mesh (``backend="cuda-sharded"``,
 :mod:`repro_torch.sharding`), the §4 apps in
 :mod:`repro_torch.kernels.ops`, the streaming farm tier
 (:class:`~repro_torch.core.streaming.FarmEngine`, with the fault and
-recovery layer of :mod:`repro_torch.resilience`) and the LM path
+recovery layer of :mod:`repro_torch.resilience`), the same farm over a
+device mesh (``FarmEngine(mesh=...)``: lanes over a mesh axis, or with a
+``"cuda-sharded"`` loop the composed lanes × spatial farm) and the LM path
 (``configs``, ``models``, ``serve``); further slices are listed in
 ROADMAP.md.
 

@@ -27,9 +27,11 @@ PyTorch twin of :mod:`repro.core.executor`.  Four backends
     shard's own domain bounds), then one edge-strip exchange between the
     shards' frames and one fold of the per-shard partial reduces.
 
-The single-device engine also carries a **lane stack** of frames (the 1:1
-farm, :meth:`repro_torch.core.pattern.LoopOfStencilReduce.farm_run`): one
-launch sweeps every lane, and a lane that is done keeps its value.
+Both engines also carry a **lane stack** of frames (the 1:1 farm,
+:meth:`repro_torch.core.pattern.LoopOfStencilReduce.farm_run`, and the
+streaming farm over a mesh, :class:`repro_torch.core.streaming.FarmEngine`):
+one launch a shard sweeps every lane, and a lane that is done keeps its
+value.
 """
 from __future__ import annotations
 
@@ -44,10 +46,13 @@ from .frames import (DEFAULT_BLOCK, FrameSpec, LaneFrameSpec,
                      ShardedFrameSpec, alloc_lane_env, alloc_lane_frames,
                      ceil_mul, frame_env, frame_env_sharded, frame_spec,
                      make_frame, make_frames_sharded, refill_lane_env,
-                     refill_lane_frames, refill_lanes_env_masked,
-                     refill_lanes_masked, refill_slot_env, refill_slot_frame,
-                     refresh_frame, refresh_frames_sharded,
-                     shard_domain_bounds, sharded_frame_spec, unframe)
+                     refill_lane_env_sharded, refill_lane_frames,
+                     refill_lane_frames_sharded, refill_lanes_env_masked,
+                     refill_lanes_masked, refill_slot_env,
+                     refill_slot_env_sharded, refill_slot_frame,
+                     refill_slot_frame_sharded, refresh_frame,
+                     refresh_frames_sharded, shard_domain_bounds,
+                     sharded_frame_spec, unframe)
 from .reduce import collective_combine, resolve_monoid
 from .semantics import Boundary
 
@@ -353,6 +358,15 @@ class ShardedStencilEngine:
     allocates each shard's second frame and reduce scratch once, as
     :class:`StencilEngine` does; the launches go through the kernel
     wrappers, which run their plain versions on CPU frames.
+
+    The lane half (the composed lanes × spatial farm): each shard holds a
+    lane stack (lanes, fm, fn) of its block of every lane, allocated once
+    by :meth:`alloc_lanes` and refilled in place (:meth:`refill_lanes`,
+    :meth:`refill_slot`); :meth:`sweeps` and :meth:`unframe` take the
+    stacks as they are (the reference's ``sweeps_lanes`` /
+    ``unframe_lanes``): one launch a shard over its whole stack, the
+    exchange batched over the lanes, and the partials folded lane by lane
+    into a (lanes,) reduce.
     """
 
     f: Callable
@@ -389,10 +403,7 @@ class ShardedStencilEngine:
         is shard i's tuple of env frames."""
         from ..kernels.stencil2d import alloc_scratch
 
-        lm, ln = blocks[0].shape
-        sspec = sharded_frame_spec(
-            lm, ln, self.part, k=self.k, block=self.block,
-            sweeps=self.unroll if self._multistep else 1)
+        sspec = self.lane_sspec(*blocks[0].shape)
         frames = make_frames_sharded(blocks, sspec, self.boundary)
         per_field = [frame_env_sharded(e, sspec, self.boundary,
                                        halo=self._multistep)
@@ -406,6 +417,76 @@ class ShardedStencilEngine:
                         for i in range(len(frames))]
         return frames, env_frames, sspec
 
+    def lane_sspec(self, lm: int, ln: int) -> ShardedFrameSpec:
+        """Per-shard frame geometry of a local (lm, ln) block (one lane's,
+        or the single grid's)."""
+        return sharded_frame_spec(
+            lm, ln, self.part, k=self.k, block=self.block,
+            sweeps=self.unroll if self._multistep else 1)
+
+    # -- the lane half: lane stacks a shard --------------------------------
+    def alloc_lanes(self, sspec: ShardedFrameSpec, lanes: int, dtype,
+                    env_dtypes=()):
+        """Allocate each shard's lane slots (zeros, on its device), its
+        second lane buffer, per-lane reduce scratch and domain bounds, and
+        one env slot stack per dtype in ``env_dtypes`` (block-rounded
+        interiors, or full frames under temporal blocking) — once.
+        Returns ``(frames, env_frames)``: lists in mesh order,
+        ``env_frames[i]`` shard i's tuple."""
+        from ..kernels.stencil2d import alloc_scratch
+
+        lspec = LaneFrameSpec(lanes, sspec.local)
+        devs = self.part.devices
+        frames = [alloc_lane_frames(lspec, dtype, d) for d in devs]
+        env_frames = [tuple(alloc_lane_env(lspec, t, self._multistep, d)
+                            for t in env_dtypes) for d in devs]
+        self._buffers = [(fr, torch.zeros_like(fr)) for fr in frames]
+        self._scratch = [alloc_scratch(sspec.local, d, lanes) for d in devs]
+        self._bounds = [shard_domain_bounds(sspec, i)
+                        for i in range(len(devs))]
+        return frames, env_frames
+
+    def prepare_lanes(self, blocks, env_blocks=()):
+        """Stage each shard's (lanes, lm, ln) block stack (a list in mesh
+        order) and its env stacks (one such list per field) into lane
+        frames: :meth:`alloc_lanes`, then :meth:`refill_lanes`."""
+        lanes, lm, ln = blocks[0].shape
+        sspec = self.lane_sspec(lm, ln)
+        frames, env_frames = self.alloc_lanes(
+            sspec, lanes, blocks[0].dtype,
+            tuple(e[0].dtype for e in env_blocks))
+        self.refill_lanes(frames, env_frames, blocks, env_blocks, sspec)
+        return frames, env_frames, sspec
+
+    def refill_lanes(self, frames, env_frames, interiors, env_new,
+                     sspec: ShardedFrameSpec):
+        """Refill every shard's lane stack in place with its blocks of the
+        next items (``interiors[i]``: shard i's (lanes, lm, ln); ``env_new``
+        one such list per field), then the lane-batched exchange.  Pass
+        ``frames[i][:c]`` views to refill the first c lanes."""
+        refill_lane_frames_sharded(frames, interiors, sspec, self.boundary)
+        for j, e in enumerate(env_new):
+            refill_lane_env_sharded([ef[j] for ef in env_frames], e, sspec,
+                                    self.boundary, halo=self._multistep)
+        return frames, env_frames
+
+    def refill_slot(self, frames, env_frames, li: int, interiors, env_new,
+                    sspec: ShardedFrameSpec):
+        """Refill lane slot ``li`` of every shard's stack in place with its
+        (lm, ln) block of the next item, then re-assert that lane's ghost
+        strips on every shard."""
+        refill_slot_frame_sharded(frames, interiors, li, sspec,
+                                  self.boundary)
+        for j, e in enumerate(env_new):
+            refill_slot_env_sharded([ef[j] for ef in env_frames], e, li,
+                                    sspec, self.boundary,
+                                    halo=self._multistep)
+        return frames, env_frames
+
+    def buffer_pointers(self) -> tuple:
+        """``data_ptr()`` of every shard's two frame buffers."""
+        return tuple(b.data_ptr() for pair in self._buffers for b in pair)
+
     def _other(self, i: int, frame):
         a, b = self._buffers[i]
         if frame is not a and frame is not b:
@@ -413,10 +494,13 @@ class ShardedStencilEngine:
         return b if frame is a else a
 
     # -- the loop body ----------------------------------------------------
-    def sweeps(self, frames, env_frames, sspec: ShardedFrameSpec):
+    def sweeps(self, frames, env_frames, sspec: ShardedFrameSpec,
+               live: Optional[torch.Tensor] = None):
         """``unroll`` sweeps on every shard, ONE ghost exchange and the
         combine; returns (frames', reduced) with ``reduced`` a 0-d tensor on
-        the lead device."""
+        the lead device, or for lane stacks a (lanes,) tensor folded lane by
+        lane; ``live`` (a (lanes,) bool) marks the lanes to sweep, the
+        others come back unchanged."""
         from ..kernels.multistep import stencil2d_multistep_framed
         from ..kernels.stencil2d import stencil2d_fused_framed
 
@@ -425,6 +509,8 @@ class ShardedStencilEngine:
                   measure=self._kernel_measure, acc_dtype=self.acc_dtype)
         new, partials = [], []
         for i, frame in enumerate(frames):
+            if live is not None:
+                kw["live"] = live.to(frame.device)
             with _on(frame.device):
                 if self._multistep:
                     out, red = stencil2d_multistep_framed(
@@ -444,8 +530,8 @@ class ShardedStencilEngine:
         return new, collective_combine(self._op, partials)
 
     def unframe(self, frames, sspec: ShardedFrameSpec) -> list:
-        """Each shard's local domain as a tensor of its own, after
-        convergence."""
+        """Each shard's local domain (each lane's, for lane stacks) as a
+        tensor of its own, after convergence."""
         return [unframe(fr, sspec.local).clone() for fr in frames]
 
 

@@ -394,10 +394,11 @@ def sharded_frame_spec(lm: int, ln: int, part, *, k: int = 1,
 
 
 def _strip(frame, axis, lo, hi, olo, ohi):
-    """The view frame[lo:hi] along ``axis``, [olo:ohi] along the other."""
+    """The view frame[lo:hi] along ``axis``, [olo:ohi] along the other
+    (the frame's last two dims: a lane stack's every lane at once)."""
     idx = [slice(olo, ohi), slice(olo, ohi)]
     idx[axis] = slice(lo, hi)
-    return frame[tuple(idx)]
+    return frame[(Ellipsis, *idx)]
 
 
 def _edge_fill(frame, spec: FrameSpec, axis: int, boundary: Boundary,
@@ -413,7 +414,7 @@ def _edge_fill(frame, spec: FrameSpec, axis: int, boundary: Boundary,
     elif boundary is Boundary.REFLECT:
         src = _strip(frame, axis, d0 + 1, d0 + 1 + p, olo, ohi) if low \
             else _strip(frame, axis, d1 - 1 - p, d1 - 1, olo, ohi)
-        dst.copy_(src.flip(axis))
+        dst.copy_(src.flip(axis - 2))
     elif boundary is Boundary.WRAP:
         dst.copy_(_strip(frame, axis, d1 - p, d1, olo, ohi) if low
                   else _strip(frame, axis, d0, d0 + p, olo, ohi))
@@ -453,7 +454,9 @@ def _exchange_axis(frames, sspec: ShardedFrameSpec, axis: int,
 def refresh_frames_sharded(frames, sspec: ShardedFrameSpec,
                            boundary: Boundary | str):
     """Re-assert every shard's ghost ring, in place — the loop body's
-    exchange.  Returns ``frames`` (a list in mesh order).
+    exchange.  Returns ``frames`` (a list in mesh order).  Each shard's
+    frame may be a lane stack (leading lane axis, the same lanes on every
+    shard): one strip copy then moves that strip of every lane.
 
     Axis 0 strips span the domain's columns; then axis 1 strips run the
     full frame height, so corner ghosts come from the diagonal neighbour
@@ -499,6 +502,66 @@ def frame_env_sharded(blocks, sspec: ShardedFrameSpec,
     if not halo:
         return [frame_env(b, sspec.local, boundary) for b in blocks]
     return make_frames_sharded(blocks, sspec, _env_ghost(boundary))
+
+
+# ---------------------------------------------------------------------------
+# Sharded lane refills — the composed lanes x spatial farm's slot hand-offs
+# (twins of the reference's ``refill_*_sharded``).  One lane shard's slots
+# are a lane stack (lanes, fm, fn) on each spatial shard; a refill writes
+# every spatial shard's block of the new interior, then re-asserts the ghost
+# strips of every spatial shard through the loop body's exchange, on the
+# refilled lanes only (the other lanes' rings already agree with their
+# domains).  The reference's owner mask is host arithmetic here: the caller
+# passes the owner lane shard's stacks (:func:`repro_torch.sharding.
+# local_slot`).
+# ---------------------------------------------------------------------------
+
+
+def refill_lane_frames_sharded(frames, interiors, sspec: ShardedFrameSpec,
+                               boundary: Boundary | str) -> list:
+    """Write each spatial shard's (lanes, lm, ln) block of the next items
+    into its lane stack (lists in mesh order, the lane counts equal), then
+    exchange the ghosts of every lane.  In place; returns ``frames``."""
+    p = sspec.local.pad
+    for fr, blk in zip(frames, interiors):
+        fr[..., p:p + sspec.local.m, p:p + sspec.local.n] = blk
+    return refresh_frames_sharded(frames, sspec, boundary)
+
+
+def refill_lane_env_sharded(env_frames, e, sspec: ShardedFrameSpec,
+                            boundary: Boundary | str,
+                            halo: bool = False) -> list:
+    """Sharded twin of :func:`refill_lane_env`: each spatial shard's env
+    block into its env lane stack; with ``halo`` the ghost strips hold the
+    neighbour's env through the exchange (:func:`frame_env_sharded`)."""
+    if not halo:
+        for ef, blk in zip(env_frames, e):
+            ef[..., :sspec.local.m, :sspec.local.n] = blk
+        return env_frames
+    return refill_lane_frames_sharded(env_frames, e, sspec,
+                                      _env_ghost(boundary))
+
+
+def refill_slot_frame_sharded(frames, interiors, li: int,
+                              sspec: ShardedFrameSpec,
+                              boundary: Boundary | str) -> list:
+    """Refill lane slot ``li`` of one lane shard's stacks with each
+    spatial shard's (lm, ln) block of the next item, then re-assert that
+    lane's ghost strips on EVERY spatial shard (a neighbour's ghost rows
+    read this lane's new domain).  In place; returns ``frames``."""
+    refill_lane_frames_sharded([fr[li:li + 1] for fr in frames],
+                               [blk[None] for blk in interiors], sspec,
+                               boundary)
+    return frames
+
+
+def refill_slot_env_sharded(env_frames, e, li: int, sspec: ShardedFrameSpec,
+                            boundary: Boundary | str,
+                            halo: bool = False) -> list:
+    """Single-slot twin of :func:`refill_lane_env_sharded`."""
+    refill_lane_env_sharded([ef[li:li + 1] for ef in env_frames],
+                            [blk[None] for blk in e], sspec, boundary, halo)
+    return env_frames
 
 
 def shard_domain_bounds(sspec: ShardedFrameSpec, index: int) -> tuple:

@@ -45,7 +45,8 @@ from .semantics import Boundary
 from .stencil import stencil_indexed, stencil_taps, stencil_windows
 
 
-def segmented_while(body, carry, *, finished, segment, early_exit=True):
+def segmented_while(body, carry, *, finished, segment, early_exit=True,
+                    shards=None):
     """Bounded early-exit slice of a done-masked lane loop (twin of
     :func:`repro.core.pattern.segmented_while`).
 
@@ -60,21 +61,37 @@ def segmented_while(body, carry, *, finished, segment, early_exit=True):
     step unless the segment ran its full ``segment`` steps — so it exits at
     the same step as the reference.  ``early_exit=False`` runs exactly
     ``segment`` done-masked steps and reads nothing.
+
+    ``shards`` splits the lanes into that many equal lane shards, each
+    running its own segment, as the reference's ``shard_map`` does: a shard
+    stops on its own exit test, the others step on.  One host loop steps
+    them in lockstep with one read a step of every shard's test;
+    ``body(carry, active)`` gets the host list of shards that step, and
+    ``steps`` is a list, one count a shard.
     """
+    P = shards or 1
+    call = body if shards is not None else (lambda c, active: body(c))
+    steps = [0] * P
     if not early_exit:
         for _ in range(segment):
-            carry = body(carry)
-        return carry, segment
-    fin0 = finished(carry)
-    fin, steps = fin0, 0
-    while steps < segment:
-        newly = (fin & ~fin0).any()
-        if not bool((~fin).any() & ~newly):
-            break
-        carry = body(carry)
-        steps += 1
-        fin = finished(carry)
-    return carry, steps
+            carry = call(carry, [True] * P)
+        steps = [segment] * P
+    else:
+        fin0 = fin = finished(carry)
+        active = [True] * P
+        while True:
+            cand = [a and n < segment for a, n in zip(active, steps)]
+            if not any(cand):
+                break
+            go = ((~fin).reshape(P, -1).any(1)
+                  & ~(fin & ~fin0).reshape(P, -1).any(1)).tolist()
+            active = [c and g for c, g in zip(cand, go)]
+            if not any(active):
+                break
+            carry = call(carry, active)
+            steps = [n + a for n, a in zip(steps, active)]
+            fin = finished(carry)
+    return carry, (steps if shards is not None else steps[0])
 
 
 def segment_reads(steps: int, segment: int) -> int:
@@ -408,8 +425,7 @@ class LoopOfStencilReduce:
             raise ValueError(
                 "backend='cuda-sharded' lanes are driven by "
                 "repro_torch.core.streaming.FarmEngine (they need a mesh "
-                "carrying both the lane and the spatial axes; ROADMAP.md "
-                "queue A7b)")
+                "carrying both the lane and the spatial axes)")
         a0 = to_device(a0, self.device)
         env = tuple(to_device(e, self.device) for e in env)
         shape = getattr(a0, "shape", None)
@@ -459,18 +475,31 @@ class LoopOfStencilReduce:
         return torch.stack([self._cond_value(r[i], None)
                             for i in range(r.shape[0])])
 
-    def _lane_body(self, step, carry):
+    def _lane_body(self, step, carry, shards=None, active=None):
         """One done-masked step of the lane loop.  ``carry = (a, r, it,
         done, hw)``; ``step(a, live)`` sweeps the live lanes and leaves the
         others as they are.  A lane whose flag (or iteration cap) has fired
         keeps its reduce, count and health word while the others run on;
         the sentinel folds each live lane's reduce into its health word and
-        a POISONED or DIVERGED lane is masked done on the spot."""
+        a POISONED or DIVERGED lane is masked done on the spot.
+
+        With ``shards`` (lane shards of equal size) ``active`` is the host
+        list of shards that step: the others' lanes are held, ``step(a,
+        live, active)`` skips them, and the fault hook sees each shard's
+        (local lanes,) vectors, as under the reference's ``shard_map``."""
         a, r, it, done, hw = carry
         live = ~done & (it < self.max_iters)
-        a, r_new = step(a, live)
+        if shards is None:
+            a, r_new = step(a, live)
+        else:
+            if not all(active):
+                live = live & torch.tensor(active, device=live.device) \
+                    .repeat_interleave(live.shape[0] // shards)
+            a, r_new = step(a, live, active)
         if self.fault_hook is not None:
-            r_new = self.fault_hook(r_new, it)
+            r_new = (self.fault_hook(r_new, it) if shards is None else
+                     torch.cat([self.fault_hook(x, y) for x, y in
+                                zip(r_new.chunk(shards), it.chunk(shards))]))
         done_new = self._lane_cond(r_new)
         hw_new, quar = health_update(hw, r_new, r, live, done_new, it,
                                      self.sentinel)
@@ -487,14 +516,23 @@ class LoopOfStencilReduce:
         it, done = carry[2], carry[3]
         return done | (it >= self.max_iters)
 
-    def _drive_lanes(self, a0, *, step, finalize, done0=None
-                     ) -> LoopResult:
+    def _drive_lanes(self, a0, *, step, finalize, done0=None,
+                     cond_fold=None, shards=None) -> LoopResult:
         """Lane-stacked repeat/until: each lane owns a done flag and an
         iteration count on the device, and the loop runs while any lane is
         live — the one host read per check.  Lane for lane the same as
-        :meth:`_drive` (the same reduce, condition and health word)."""
+        :meth:`_drive` (the same reduce, condition and health word).
+
+        ``shards`` splits the lanes into lane shards that each run their
+        own loop, as under the reference's ``shard_map`` (see
+        :meth:`_lane_body`): a shard whose lanes are all finished stops.
+        ``cond_fold`` maps the (shards,) per-shard any-live vector to the
+        shards that step: the composed lanes × spatial farm passes an
+        ``any`` over it, so every shard runs to the slowest lane anywhere
+        (the reference's lane-axis ``pmax``); None lets each stop on its
+        own."""
         dev = self.device
-        lanes = a0.shape[0]
+        lanes = a0.shape[0] if done0 is None else len(done0)
         carry = (a0,
                  torch.full((lanes,), self._id, device=dev),
                  torch.zeros((lanes,), dtype=torch.int32, device=dev),
@@ -503,14 +541,21 @@ class LoopOfStencilReduce:
                   torch.as_tensor(done0, device=dev).to(torch.bool)
                   .reshape((lanes,))),
                  torch.zeros((lanes,), dtype=torch.int32, device=dev))
-        while not bool(self._lane_finished(carry).all()):
-            carry = self._lane_body(step, carry)
+        while True:
+            run = (~self._lane_finished(carry)).reshape(shards or 1, -1) \
+                .any(1)
+            if cond_fold is not None:
+                run = cond_fold(run)
+            active = run.tolist()
+            if not any(active):
+                break
+            carry = self._lane_body(step, carry, shards, active)
         a, r, it, _, hw = carry
         return LoopResult(a=finalize(a), reduced=r, iters=it, state=None,
                           health=hw)
 
     def lane_segment(self, carry, *, step, segment: int,
-                     early_exit: bool = True):
+                     early_exit: bool = True, shards=None):
         """One bounded slice of the lane loop — the continuous-refill tier.
 
         Runs the done-masked body of :meth:`_drive_lanes` (``step(a,
@@ -519,10 +564,17 @@ class LoopOfStencilReduce:
         when no live lane remains (:func:`segmented_while`).  ``carry = (a,
         r, it, done, hw)`` keeps its shapes, so a streaming executor refills
         the finished lanes' slots in place and resumes the same carry.
-        Returns ``(carry', steps)``, each step ``unroll`` sweeps deep."""
-        return segmented_while(lambda c: self._lane_body(step, c), carry,
-                               finished=self._lane_finished,
-                               segment=segment, early_exit=early_exit)
+        Returns ``(carry', steps)``, each step ``unroll`` sweeps deep.
+        ``early_exit=False`` runs exactly ``segment`` done-masked steps (the
+        composed farm's uniform schedule).  ``shards``: lane shards that
+        each exit on their own (``steps`` then has one count a shard)."""
+        if shards is None:
+            body = lambda c: self._lane_body(step, c)
+        else:
+            body = lambda c, active: self._lane_body(step, c, shards, active)
+        return segmented_while(body, carry, finished=self._lane_finished,
+                               segment=segment, early_exit=early_exit,
+                               shards=shards)
 
 
 # ---------------------------------------------------------------------------

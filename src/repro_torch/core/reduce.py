@@ -46,10 +46,11 @@ def monoid_name(op) -> str | None:
 
 
 def collective_combine(op: Callable, partials) -> torch.Tensor:
-    """The cross-shard phase of the two-phase reduce: one 0-d value from
-    the per-shard partials (a list in mesh order), on the first partial's
-    device (twin of the reference's ``collective_combine``, whose
-    collectives hand every shard this value).
+    """The cross-shard phase of the two-phase reduce: the per-shard
+    partials (a list in mesh order) folded into one value, on the first
+    partial's device (twin of the reference's ``collective_combine``, whose
+    collectives hand every shard this value).  Each partial is a 0-d value
+    or a (lanes,) vector of one value a lane; a vector folds lane by lane.
 
     ``max``/``min`` fold with ``torch.maximum``/``torch.minimum`` and keep
     the reference's explicit NaN re-propagation (its all-reduce drops NaN;
@@ -60,7 +61,7 @@ def collective_combine(op: Callable, partials) -> torch.Tensor:
     lead = partials[0].device
     vals = torch.stack([p.to(lead) for p in partials])
     if op in (torch.logical_or, torch.logical_and):
-        count = vals.to(torch.float32).sum()
+        count = vals.to(torch.float32).sum(0)
         return count > 0 if op is torch.logical_or else \
             count >= float(len(partials))
     r = vals[0]
@@ -68,9 +69,8 @@ def collective_combine(op: Callable, partials) -> torch.Tensor:
         r = op(r, v)
     if (op is torch.maximum or op is torch.minimum) \
             and vals.dtype.is_floating_point:
-        r = torch.where(torch.isnan(vals).any(),
-                        torch.full((), float("nan"), dtype=r.dtype,
-                                   device=lead), r)
+        r = torch.where(torch.isnan(vals).any(0),
+                        torch.full_like(r, float("nan")), r)
     return r
 
 

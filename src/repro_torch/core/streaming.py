@@ -34,9 +34,11 @@ Where the reference runs an on-device ``while_loop``, the port runs a host
 loop over device tensors with one host read per body step.  Results leave
 the device once per emission (round mode: once per round) and reach the
 sink as CPU tensors.  :func:`sharded_farm` spreads a generic farm's lanes
-over a mesh axis; the engine tier over a mesh (``FarmEngine(mesh=...)``, a
-``"cuda-sharded"`` loop inside it, the composed lanes × spatial farm)
-belongs to ROADMAP.md queue A7b and raises ``NotImplementedError``.
+over a mesh axis.  ``FarmEngine(mesh=...)`` spreads the engine's slots over
+a mesh axis (each lane shard its own loop), and with a ``"cuda-sharded"``
+loop each lane's frame is split over the partition's axes of the same mesh
+too (the composed lanes × spatial farm); one host loop drives every shard,
+as the reference's single controller does.
 """
 from __future__ import annotations
 
@@ -49,13 +51,13 @@ from typing import Any, Callable, Iterator, Optional
 import numpy as np
 import torch
 
-from ..device import resolve_device, to_device
-from .frames import alloc_stage_ring, stage_ring_write, unframe
+from ..device import resolve_backend, resolve_device, to_device
+from ..sharding.specs import (axis_devices, check_even, gather_grid,
+                              local_slot, scatter_grid, slice_partition)
+from .executor import _on, local_extents
+from .frames import DEFAULT_BLOCK, alloc_stage_ring, stage_ring_write, unframe
 from .pattern import LoopResult, segment_reads
 from .reduce import HEALTH_CONVERGED, HEALTH_DIVERGED, HEALTH_POISONED
-
-_SHARDED = ("ROADMAP.md queue A7b (FarmEngine over a mesh: lanes over a "
-            "mesh axis and the composed lanes x spatial farm)")
 
 
 class NonFiniteItemError(ValueError):
@@ -158,16 +160,9 @@ def sharded_farm(worker: Callable, mesh: Any, axis: str = "data"):
     device and runs through :func:`farm` there, and the results are
     stacked on the mesh's first device in lane order.  Every batch
     re-enters the worker from the host, as in the reference; the engine
-    tier over a mesh (``FarmEngine(mesh=...)``) is ROADMAP.md queue A7b.
+    tier over a mesh is ``FarmEngine(mesh=...)``.
     """
-    if axis not in mesh.shape:
-        raise ValueError(f"mesh has no axis {axis!r}")
-    at = [0] * mesh.devices.ndim
-    pos = mesh.axis_names.index(axis)
-    devices = []
-    for c in range(mesh.shape[axis]):
-        at[pos] = c
-        devices.append(mesh.devices[tuple(at)])
+    devices = axis_devices(mesh, axis)
     inner = farm(worker)
 
     def run(batch):
@@ -317,6 +312,14 @@ def _dev_key(dev: torch.device):
     return dev.type, dev.index or 0
 
 
+def _cat(rs: list) -> torch.Tensor:
+    """Per-shard (local lanes,) vectors as one (lanes,) vector; a shard
+    that did not step (None) gets zeros, which the lane body masks out."""
+    fill = next(r for r in rs if r is not None)
+    rs = [torch.zeros_like(fill) if r is None else r for r in rs]
+    return rs[0] if len(rs) == 1 else torch.cat(rs)
+
+
 class _TorchSlots:
     """The lane slots of a ``"torch"`` loop: plain (lanes, m, n) stacks,
     swept by the shift algebra lane by lane."""
@@ -390,6 +393,173 @@ class _KernelSlots:
                                self.lspec)
 
 
+class _LaneShards:
+    """The slots of a farm on single-device loops, over the lane shards of
+    a mesh axis (one shard without a mesh): one ``_TorchSlots`` or
+    ``_KernelSlots`` a shard, on its device, with ``lanes / shards`` slots.
+    The carry is a list, one entry a shard; the per-lane vectors (reduce,
+    count, flag, health) stay global on the lead device, so a step moves
+    each shard's live flags to its device and its reduces back, and
+    nothing else crosses between shards.  A shard whose loop is not
+    stepping launches nothing."""
+
+    def __init__(self, cls, loop, lanes, a0, envs, devices, lead):
+        self.lead, self.devices = lead, devices
+        self.local = lanes // len(devices)
+        self.parts = [cls(loop, self.local, a0, envs, d) for d in devices]
+        self.frames = [p.frames for p in self.parts]
+        self.env_frames = [p.env_frames for p in self.parts]
+
+    def _span(self, s: int) -> slice:
+        return slice(s * self.local, (s + 1) * self.local)
+
+    def pointers(self) -> tuple:
+        return tuple(x for p in self.parts for x in p.pointers())
+
+    def env_pointers(self) -> tuple:
+        return tuple(e.data_ptr() for envs in self.env_frames for e in envs)
+
+    def step(self, env_frames):
+        steps = [p.step(e) for p, e in zip(self.parts, env_frames)]
+
+        def step(frames, live, active):
+            new, rs = list(frames), [None] * len(frames)
+            for s, (st, dev) in enumerate(zip(steps, self.devices)):
+                if active[s]:
+                    with _on(dev):
+                        new[s], r = st(frames[s], live[self._span(s)].to(dev))
+                    rs[s] = r.to(self.lead)
+            return new, _cat(rs)
+        return step
+
+    def capture(self, frames) -> list:
+        """Every lane's domain, copied: one (local lanes, m, n) tensor a
+        shard, on its device."""
+        return [p.domains(fr).clone() for p, fr in zip(self.parts, frames)]
+
+    def gather(self, frames) -> torch.Tensor:
+        return _cat([x.to(self.lead) for x in self.capture(frames)])
+
+    def lane(self, frames, idx: int) -> torch.Tensor:
+        s, li = divmod(idx, self.local)
+        return self.parts[s].domains(frames[s])[li].clone()
+
+    def write_first(self, frames, env_frames, count, a0s, envs):
+        for s, (p, dev) in enumerate(zip(self.parts, self.devices)):
+            sl = self._span(s)
+            c = max(0, min(count, sl.stop) - sl.start)
+            if c:
+                p.write_first(frames[s], env_frames[s], c,
+                              a0s[sl][:c].to(dev),
+                              tuple(e[sl][:c].to(dev) for e in envs))
+
+    def write_slot(self, frames, env_frames, idx, a0, envs):
+        s, li = divmod(idx, self.local)
+        dev = self.devices[s]
+        self.parts[s].write_slot(frames[s], env_frames[s], li, a0.to(dev),
+                                 tuple(e.to(dev) for e in envs))
+
+    def write_masked(self, frames, env_frames, take, pos, rings):
+        for s, (p, dev) in enumerate(zip(self.parts, self.devices)):
+            ring, ring_envs = rings[_dev_key(dev)]
+            at = pos[self._span(s)].to(dev)
+            p.write_masked(frames[s], env_frames[s],
+                           take[self._span(s)].to(dev), ring[at],
+                           tuple(re_[at] for re_ in ring_envs))
+
+
+class _ComposedSlots:
+    """The slots of the composed lanes × spatial farm (a ``"cuda-sharded"``
+    loop over a mesh): one :class:`~repro_torch.core.executor.
+    ShardedStencilEngine` a lane shard, on that shard's slice of the
+    partition (:func:`~repro_torch.sharding.slice_partition`), holding a
+    lane stack of its block of every local lane on each spatial shard.
+    ``prep`` ran on the whole item on the lead device; a write scatters the
+    item's blocks to the owner lane shard's spatial shards and re-asserts
+    that lane's ghosts through the exchange.  A step is one launch a
+    spatial shard over its lane stack, the lane-batched exchange and the
+    per-lane fold, for every lane shard."""
+
+    def __init__(self, loop, lanes, lane_axis, a0, envs, lead, nshards):
+        from .executor import ShardedStencilEngine
+
+        self.lead = lead
+        self.local = lanes // nshards
+        self.parts = [slice_partition(loop.partition, lane_axis, d)
+                      for d in range(nshards)]
+        self.engines = [ShardedStencilEngine(
+            f=loop.f, part=part, k=loop.k, boundary=loop.boundary,
+            combine=loop.combine, identity=loop.identity, delta=loop.delta,
+            measure=loop.measure, block=loop.block or DEFAULT_BLOCK,
+            unroll=loop.unroll) for part in self.parts]
+        lm, ln = local_extents(*a0.shape, loop.partition)
+        self.sspec = self.engines[0].lane_sspec(lm, ln)
+        self.frames, self.env_frames = [], []
+        for eng in self.engines:
+            fr, ef = eng.alloc_lanes(self.sspec, self.local, a0.dtype,
+                                     tuple(e.dtype for e in envs))
+            self.frames.append(fr)
+            self.env_frames.append(ef)
+
+    def pointers(self) -> tuple:
+        return tuple(x for eng in self.engines
+                     for x in eng.buffer_pointers())
+
+    def env_pointers(self) -> tuple:
+        return tuple(e.data_ptr() for group in self.env_frames
+                     for envs in group for e in envs)
+
+    def step(self, env_frames):
+        def step(frames, live, active):
+            new, rs = list(frames), [None] * len(frames)
+            for d, eng in enumerate(self.engines):
+                if active[d]:
+                    sl = slice(d * self.local, (d + 1) * self.local)
+                    new[d], r = eng.sweeps(frames[d], env_frames[d],
+                                           self.sspec, live[sl])
+                    rs[d] = r.to(self.lead)
+            return new, _cat(rs)
+        return step
+
+    def _blocks(self, d, x, batch):
+        return scatter_grid(x, self.parts[d], batch=batch)
+
+    def gather(self, frames) -> torch.Tensor:
+        return _cat([
+            gather_grid(eng.unframe(frames[d], self.sspec), self.parts[d],
+                        device=self.lead, batch=1)
+            for d, eng in enumerate(self.engines)])
+
+    def lane(self, frames, idx: int) -> torch.Tensor:
+        d, li = divmod(idx, self.local)
+        sp = self.sspec.local
+        p = sp.pad
+        return gather_grid([fr[li, p:p + sp.m, p:p + sp.n]
+                            for fr in frames[d]], self.parts[d],
+                           device=self.lead)
+
+    def write_first(self, frames, env_frames, count, a0s, envs):
+        for d, eng in enumerate(self.engines):
+            lo = d * self.local
+            c = max(0, min(count, lo + self.local) - lo)
+            if c:
+                eng.refill_lanes(
+                    [fr[:c] for fr in frames[d]],
+                    [tuple(e[:c] for e in ef) for ef in env_frames[d]],
+                    self._blocks(d, a0s[lo:lo + c], 1),
+                    [self._blocks(d, e[lo:lo + c], 1) for e in envs],
+                    self.sspec)
+
+    def write_slot(self, frames, env_frames, idx, a0, envs):
+        for d, eng in enumerate(self.engines):
+            owns, li = local_slot(idx, self.local, d)
+            if owns:
+                eng.refill_slot(frames[d], env_frames[d], li,
+                                self._blocks(d, a0, 0),
+                                [self._blocks(d, e, 0) for e in envs],
+                                self.sspec)
+
+
 @dataclasses.dataclass
 class StreamResult:
     """One continuous-mode emission: the item's stream position plus the
@@ -454,16 +624,32 @@ class FarmEngine:
     ``dead_letter`` lists every non-ok emission.  Recovery: see
     :meth:`run_continuous`.
 
-    ``device`` defaults to the CUDA card and must be the loop's device.
-    ``mesh=`` (lanes over a device mesh), a ``"cuda-sharded"`` loop and the
-    composed lanes × spatial deployment belong to ROADMAP.md queue A7b and
-    raise.
+    ``device`` defaults to the CUDA card and must be the loop's device:
+    the per-lane vectors, ``prep`` and the fold live there (the lead).
+
+    Deployments (the reference's three):
+
+    * ``mesh=None`` — one device.
+    * ``mesh=`` (a :class:`repro_torch.sharding.Mesh`) with a
+      single-device backend (``"torch"``, ``"cuda"``, ``"cuda-multistep"``)
+      — the slots spread over ``mesh[lane_axis]``: each lane shard owns
+      lanes/P slots on its device and runs its own loop (its own trip
+      count in round mode, its own early-exit segment in continuous mode);
+      nothing crosses the lane axis.  The chained path's staging ring has
+      one copy on each lane shard's device.
+    * a ``"cuda-sharded"`` loop — the composed lanes × spatial farm: lanes
+      over ``lane_axis``, each lane's frame split over the partition's
+      axes of the same ``mesh``.  Every lane shard runs to the slowest lane
+      anywhere (round mode) or exactly ``segment`` done-masked steps a
+      segment (continuous mode, always the classic loop), as in the
+      reference.  ``prep`` runs on the whole item before the split.
     """
 
     loop: Any                          # LoopOfStencilReduce worker
     lanes: int = 4
     prep: Optional[Callable] = None    # item -> (a0, env tuple), on device
-    mesh: Any = None                   # lanes over a mesh: queue A7b
+    mesh: Any = None                   # lanes over a device mesh
+    lane_axis: str = "data"            # the mesh axis the lanes lie over
     segment: int = 16                  # continuous mode: max body steps
                                        # between dispatcher check-ins
     max_attempts: int = 1              # slot occupations per item
@@ -479,10 +665,35 @@ class FarmEngine:
 
     def __post_init__(self):
         loop = self.loop
-        if self.mesh is not None or loop.backend == "cuda-sharded":
-            raise NotImplementedError(
-                f"FarmEngine lanes over a device mesh (mesh=, the "
-                f"composed lanes x spatial farm) belong to {_SHARDED}")
+        if self.mesh is not None:
+            if self.lane_axis not in self.mesh.axis_names:
+                raise ValueError(
+                    f"lane_axis {self.lane_axis!r} not in mesh axes "
+                    f"{self.mesh.axis_names}")
+            if self.lanes % self.mesh.shape[self.lane_axis]:
+                raise ValueError(
+                    f"lanes={self.lanes} must divide evenly over mesh "
+                    f"axis {self.lane_axis!r} "
+                    f"(size {self.mesh.shape[self.lane_axis]})")
+            for dev in self.mesh.devices.flat:
+                # a kernel backend on a mesh that holds a CPU device
+                # raises here rather than run the plain versions there
+                resolve_backend(loop.backend, dev)
+        if loop.backend == "cuda-sharded":
+            if self.mesh is None:
+                raise ValueError(
+                    "backend='cuda-sharded' lanes need mesh= (carrying the "
+                    "lane axis AND the partition's spatial axes)")
+            for name in loop.partition.axis_names:
+                if name == self.lane_axis:
+                    raise ValueError(
+                        f"partition axis {name!r} collides with "
+                        f"lane_axis; use distinct mesh axes for lanes "
+                        "and the spatial decomposition")
+                if name not in self.mesh.axis_names:
+                    raise ValueError(
+                        f"partition axis {name!r} missing from mesh "
+                        f"axes {self.mesh.axis_names}")
         if loop.state_init is not None:
             raise ValueError("FarmEngine does not support the -s variant "
                              "(per-lane loop states are ambiguous)")
@@ -512,10 +723,13 @@ class FarmEngine:
         self._prep1 = self.prep or _default_prep
         self._bound = False
         self._mode = None               # "round" | "continuous" once used
+        self._composed = loop.backend == "cuda-sharded"
+        self._nshards = (1 if self.mesh is None
+                         else self.mesh.shape[self.lane_axis])
         self._frames = None
         self._env_frames = ()
-        self._ring = None
-        self._ring_envs = ()
+        self._rings = {}                # device -> (ring, ring env
+                                        # leaves), chained mode
         self._cont_carry = None
         self.bound_pointers = {}        # buffer_pointers() at allocation
         self._waste_buf: list = []      # (iters, hw, count) of rounds,
@@ -531,6 +745,14 @@ class FarmEngine:
         self._resume_state = None       # staged by restore()
         self._rt_capture = None         # live snapshot closure, set by
                                         # run_continuous for snapshot()
+
+    @property
+    def _chain(self) -> bool:
+        """Continuous mode takes the chained path: ``chained``, except on
+        the composed farm, which always runs the classic loop (its
+        fixed-step segments have no early exit to chain past), as in the
+        reference."""
+        return self.chained and not self._composed
 
     # -- geometry (the first item binds the shapes) ----------------------
     def _bind(self, item):
@@ -553,8 +775,16 @@ class FarmEngine:
         loop = self._loop
         self._prep_avals = ((tuple(a0.shape), a0.dtype),
                             tuple((tuple(e.shape), e.dtype) for e in envs))
-        slots = _TorchSlots if loop.backend == "torch" else _KernelSlots
-        self._slots = slots(loop, L, a0, envs, dev)
+        if self._composed:
+            check_even((m, n), loop.partition)
+            self._slots = _ComposedSlots(loop, L, self.lane_axis, a0, envs,
+                                         dev, self._nshards)
+        else:
+            devices = ([dev] if self.mesh is None
+                       else axis_devices(self.mesh, self.lane_axis))
+            self._slots = _LaneShards(
+                _TorchSlots if loop.backend == "torch" else _KernelSlots,
+                loop, L, a0, envs, devices, dev)
         self._frames = self._slots.frames
         self._env_frames = self._slots.env_frames
         self._bound = True
@@ -566,10 +796,9 @@ class FarmEngine:
         ``bound_pointers`` at the end of a stream on the kernel backends:
         nothing was re-allocated."""
         return {"frames": self._slots.pointers(),
-                "env": tuple(e.data_ptr() for e in self._env_frames),
-                "ring": tuple(x.data_ptr() for x in
-                              (() if self._ring is None else
-                               (self._ring, *self._ring_envs)))}
+                "env": self._slots.env_pointers(),
+                "ring": tuple(x.data_ptr() for ring, envs in
+                              self._rings.values() for x in (ring, *envs))}
 
     def _prep_items(self, items: list):
         """``prep`` on each item (leaves already on the device), stacked:
@@ -590,9 +819,20 @@ class FarmEngine:
         done0 = torch.arange(self.lanes, device=self.device) >= count
         slots.write_first(frames, env_frames, count, a0s, envs)
         res = self._loop._drive_lanes(
-            frames, step=slots.step(env_frames),
-            finalize=lambda fr: slots.domains(fr).clone(), done0=done0)
+            frames, step=slots.step(env_frames), finalize=slots.gather,
+            done0=done0, cond_fold=self._lane_cond_fold(),
+            shards=self._nshards)
         return res.a, res.reduced, res.iters, res.health
+
+    def _lane_cond_fold(self):
+        """The composed farm's barrier: every lane shard steps while any
+        lane anywhere is live (the reference folds its any-live predicate
+        over the lane axis, so the spatial exchanges of the shards stay in
+        step).  Lane farms on single-device loops keep their per-shard trip
+        counts (None)."""
+        if not self._composed:
+            return None
+        return lambda run: run.any().expand_as(run)
 
     def round(self, items, count: Optional[int] = None):
         """Push one stacked (≤ lanes, ...) batch through the slots.
@@ -661,14 +901,17 @@ class FarmEngine:
         lane that finished at ``it_i`` idled ``max(it) - it_i`` sweeps
         (padding lanes idle the whole round).  A non-ok lane's sweeps are
         also booked as ``quarantined_lane_steps``."""
+        # the barrier is each lane shard's own, or mesh-wide when composed
+        groups = 1 if self._composed else self._nshards
         while self._waste_buf:
             iters, hw, count = self._waste_buf.pop(0)
             it_h = iters.cpu().numpy().astype(np.int64)
             hw_h = hw.cpu().numpy()
+            for it_g in it_h.reshape(groups, -1):
+                busy = int(it_g.max()) * len(it_g)
+                self.stats["wasted_lane_steps"] += busy - int(it_g.sum())
+                self.stats["lane_steps"] += busy
             top = int(it_h.max())
-            self.stats["wasted_lane_steps"] += top * len(it_h) - int(
-                it_h.sum())
-            self.stats["lane_steps"] += top * len(it_h)
             # _drive_lanes read its flag once a check, and once more
             self.stats["host_reads"] += top // self._loop.unroll + 1
             for i in range(count):
@@ -697,12 +940,18 @@ class FarmEngine:
 
     # -- continuous mode: segmented loop + per-slot refill ---------------
     def _segment_body(self, frames, env_frames, r, it, done, hw):
-        """One bounded early-exit slice of the resident lane loop.
-        Returns the resumed carry plus the body-step count."""
+        """One bounded slice of the resident lane loop: early exit a lane
+        shard, or, composed, exactly ``segment`` done-masked steps (the
+        reference's uniform schedule: its spatial exchanges must stay in
+        step).  Returns the resumed carry plus the body-step counts, one a
+        lane shard."""
+        early = not self._composed
         (a, r, it, done, hw), steps = self._loop.lane_segment(
             (frames, r, it, done, hw), step=self._slots.step(env_frames),
-            segment=self.segment)
-        self.stats["host_reads"] += segment_reads(steps, self.segment)
+            segment=self.segment, early_exit=early, shards=self._nshards)
+        if early:
+            self.stats["host_reads"] += segment_reads(max(steps),
+                                                      self.segment)
         return a, env_frames, r, it, done, hw, steps
 
     def _refill_impl(self, frames, env_frames, r, it, done, hw, idx,
@@ -735,25 +984,27 @@ class FarmEngine:
                 _put(done, idx, False), _put(hw, idx, hv))
 
     def _extract_impl(self, frames, idx: int) -> torch.Tensor:
-        """ONE lane's (m, n) domain, as a device tensor of its own."""
-        return self._slots.domains(frames)[idx].clone()
+        """ONE lane's (m, n) domain, as a device tensor of its own (on the
+        lead device when its frame is split)."""
+        return self._slots.lane(frames, idx)
 
     # -- chained dispatch: segment + ring refill + capture ---------------
-    def _unframe_all(self, frames) -> torch.Tensor:
-        """Every lane's (m, n) domain as one (lanes, m, n) copy — the
-        chained path's emission payload, taken before the refill."""
-        return self._slots.domains(frames).clone()
+    def _unframe_all(self, frames) -> list:
+        """Every lane's (m, n) domain, copied — the chained path's emission
+        payload, taken before the refill: one (local lanes, m, n) tensor a
+        lane shard."""
+        return self._slots.capture(frames)
 
-    def _chain_refill(self, frames, env_frames, take, interiors, env_sel):
-        """Masked batch refill of every taken slot at once (the ring
-        gathers ``interiors``/``env_sel`` carry junk rows where ``~take``,
-        masked out by the select)."""
-        self._slots.write_masked(frames, env_frames, take, interiors,
-                                 env_sel)
+    def _chain_refill(self, frames, env_frames, take, pos):
+        """Masked batch refill of every taken slot at once from ring
+        positions ``pos``, each lane shard from its device's ring copy (the
+        gathers carry junk rows where ``~take``, masked out by the
+        select)."""
+        self._slots.write_masked(frames, env_frames, take, pos, self._rings)
         return frames, env_frames
 
-    def _chain_entry(self, frames, env_frames, r, it, done, hw, ring,
-                     ring_envs, rd, wr, live):
+    def _chain_entry(self, frames, env_frames, r, it, done, hw, rd, wr,
+                     live):
         """ONE dispatch of the chained path: run a segment, capture the
         finished lanes' payloads (domains, reduce/iter/health — all
         pre-refill), then seat every finished live slot's next occupant
@@ -768,7 +1019,9 @@ class FarmEngine:
         live slots, the order the classic loop's ascending admission
         produces.  Returns the resumed carry plus ``(meta, r_pre, outs)``
         for the host's drain; ``meta`` is one packed int32 vector (fin | it
-        | hw | take | steps)."""
+        | hw | take | steps), with one step count a lane shard.  Under a
+        lane mesh the seating runs over the global lane order, as the
+        reference's does over its sharded vectors."""
         loop = self._loop
         (frames, env_frames, r, it, done, hw,
          steps) = self._segment_body(frames, env_frames, r, it, done, hw)
@@ -781,9 +1034,8 @@ class FarmEngine:
         take = elig & (rank < (wr - rd))
         K = self._ring_depth
         pos = torch.where(take, (rd + rank) % K, torch.zeros_like(rank))
-        frames, env_frames = self._chain_refill(
-            frames, env_frames, take, ring[pos],
-            tuple(re_[pos] for re_ in ring_envs))
+        frames, env_frames = self._chain_refill(frames, env_frames, take,
+                                                pos)
         r = torch.where(take, torch.full_like(r, loop._id), r)
         it = torch.where(take, torch.zeros_like(it), it)
         done = done & ~take
@@ -792,20 +1044,19 @@ class FarmEngine:
         meta = torch.cat([
             fin.to(torch.int32), it_pre.to(torch.int32),
             hw_pre.to(torch.int32), take.to(torch.int32),
-            torch.full((1,), steps, dtype=torch.int32,
-                       device=self.device)])
-        return (frames, env_frames, r, it, done, hw, ring, ring_envs,
-                rd, meta, r_pre, outs)
+            *(torch.full((1,), n, dtype=torch.int32, device=self.device)
+              for n in steps)])
+        return (frames, env_frames, r, it, done, hw, rd, meta, r_pre, outs)
 
-    def _stage_impl(self, ring, ring_envs, pos: int, item):
-        """Write one stream item's PREPPED interior/env fields (leaves on
-        the device) into the ring at ``pos`` — the read stage running
-        ahead of need."""
+    def _stage_impl(self, pos: int, item):
+        """Write one stream item's PREPPED interior/env fields (``prep``
+        runs once, on the lead device) into every ring copy at ``pos`` —
+        the read stage running ahead of need."""
         a0, envs = self._prep1(item)
-        stage_ring_write(ring, a0, pos)
-        for re_, e in zip(ring_envs, envs):
-            stage_ring_write(re_, e, pos)
-        return ring, ring_envs
+        for ring, ring_envs in self._rings.values():
+            stage_ring_write(ring, a0.to(ring.device), pos)
+            for re_, e in zip(ring_envs, envs):
+                stage_ring_write(re_, e.to(re_.device), pos)
 
     def _meta_read(self, *arrs):
         """THE device→host transfer of one chained-segment drain: every
@@ -846,15 +1097,19 @@ class FarmEngine:
 
     def _bind_continuous(self):
         """Allocate the continuous carry around the bound slots: the
-        staging ring (chained mode) and the per-lane (r, it, done, hw)
-        vectors — all slots start retired (done, unoccupied)."""
+        staging ring (chained mode; one copy on each lane shard's device)
+        and the per-lane (r, it, done, hw) vectors — all slots start
+        retired (done, unoccupied)."""
         loop, L, dev = self._loop, self.lanes, self.device
-        if self.chained and self._ring is None:
+        if self._chain and not self._rings:
             (a_shape, a_dtype), env_avals = self._prep_avals
             K = self._ring_depth = self.stage_depth or max(2 * L, 2)
-            self._ring = alloc_stage_ring(K, a_shape, a_dtype, dev)
-            self._ring_envs = tuple(alloc_stage_ring(K, s, d, dev)
-                                    for s, d in env_avals)
+            for d in self._slots.devices:
+                if _dev_key(d) not in self._rings:
+                    self._rings[_dev_key(d)] = (
+                        alloc_stage_ring(K, a_shape, a_dtype, d),
+                        tuple(alloc_stage_ring(K, s, t, d)
+                              for s, t in env_avals))
             self.bound_pointers = self.buffer_pointers()
         if self._cont_carry is not None:
             return          # slots + carry persist across streams: the
@@ -1041,6 +1296,7 @@ class FarmEngine:
         self._bind_continuous()
         loop = self._loop
         L, unroll = self.lanes, loop.unroll
+        Ll = L // self._nshards           # slots a lane shard
         frames, env_frames = self._frames, self._env_frames
         r, itv, done, hw = self._cont_carry
         occupants: list = [None] * L      # slot -> in-flight entry
@@ -1193,13 +1449,15 @@ class FarmEngine:
             self.stats["snapshots"] += 1
 
         def account(steps, it_h):
-            """Lane-step accounting of one segment: every body step
-            advances (or idles) every lane by ``unroll`` sweeps."""
-            nonlocal prev_it
-            total = int(steps) * unroll * L
-            self.stats["lane_steps"] += total
-            self.stats["wasted_lane_steps"] += total - int(
-                (it_h - prev_it).sum())
+            """Lane-step accounting of one segment: every body step of a
+            lane shard advances (or idles) each of its lanes by ``unroll``
+            sweeps; ``steps`` holds one count a lane shard."""
+            for s, n in enumerate(steps):
+                sl = slice(s * Ll, (s + 1) * Ll)
+                total = int(n) * unroll * Ll
+                self.stats["lane_steps"] += total
+                self.stats["wasted_lane_steps"] += total - int(
+                    (it_h[sl] - prev_it[sl]).sum())
 
         def finish(slot, entry, status, it_s, payload):
             """Book one finished occupant: retry it, or emit it (pulling
@@ -1236,7 +1494,6 @@ class FarmEngine:
             synchronous repair phase (classic admission, ring rewound
             through ``pending_entries``), then the chain resumes."""
             nonlocal frames, env_frames, r, itv, done, hw, prev_it
-            ring, ring_envs = self._ring, self._ring_envs
             K = self._ring_depth
             rd = torch.zeros((), dtype=torch.int32, device=dev)
             wr_host = 0                      # staged-count watermark
@@ -1264,8 +1521,7 @@ class FarmEngine:
                         emit(entry, "rejected")
                         continue
                     break
-                self._stage_impl(ring, ring_envs, wr_host % K,
-                               to_device(entry["item"], dev))
+                self._stage_impl(wr_host % K, to_device(entry["item"], dev))
                 staged.append(entry)
                 wr_host += 1
                 self.stats["h2d_bytes"] += _item_nbytes(entry["item"])
@@ -1301,10 +1557,9 @@ class FarmEngine:
 
             def dispatch():
                 nonlocal frames, env_frames, r, itv, done, hw, rd
-                (frames, env_frames, r, itv, done, hw, _, _, rd, meta,
-                 r_pre, outs) = self._chain_entry(
-                     frames, env_frames, r, itv, done, hw, ring,
-                     ring_envs, rd, wr_host, live_mask())
+                (frames, env_frames, r, itv, done, hw, rd, meta, r_pre,
+                 outs) = self._chain_entry(frames, env_frames, r, itv, done,
+                                           hw, rd, wr_host, live_mask())
                 self.stats["segments"] += 1
                 if on_segment is not None:
                     # the preemption seam: fires while the segment's
@@ -1326,7 +1581,7 @@ class FarmEngine:
                 it_h = meta_h[L:2 * L].astype(np.int64)
                 hw_h = meta_h[2 * L:3 * L]
                 took_h = meta_h[3 * L:4 * L] != 0
-                account(meta_h[4 * L], it_h)
+                account(meta_h[4 * L:], it_h)
                 prev_it = np.where(took_h, 0, it_h)
                 r_h = []                     # ONE reduce pull a drained
                                              # segment, on first need
@@ -1335,7 +1590,7 @@ class FarmEngine:
                         r_h.append(r_d.cpu())
                         self.stats["host_reads"] += 1
                     self.stats["host_reads"] += 1
-                    return outs_d[slot].cpu(), r_h[0][slot]
+                    return outs_d[slot // Ll][slot % Ll].cpu(), r_h[0][slot]
                 for slot in range(L):
                     entry = occupants[slot]
                     if entry is None or not fin_h[slot]:
@@ -1447,7 +1702,7 @@ class FarmEngine:
             # (a zero-step segment) batch-seats from it.  Resumed runs keep
             # the classic admission: mid-flight occupants re-enter through
             # the carry-aware restore path the ring knows nothing about.
-            if self.chained and state is None and not resume:
+            if self._chain and state is None and not resume:
                 r = torch.full_like(r, loop._id)
                 itv = torch.full_like(itv, loop.max_iters)
                 done = torch.ones_like(done)
@@ -1465,7 +1720,7 @@ class FarmEngine:
             if state is not None or resume:
                 self.stats["recovery_seconds"] += (
                     time.perf_counter() - t_resume0)
-            if self.chained:
+            if self._chain:
                 run_chained()
             else:
                 run_classic()

@@ -20,7 +20,14 @@ The backend axis of the port:
     The 1:n deployment: one frame per shard of a device mesh
     (:mod:`repro_torch.sharding`), each swept by the kernels above, with an
     edge-strip exchange and a fold of the partial reduces between checks
-    (twin of ``"pallas-sharded"``).  Needs a ``partition=``.
+    (twin of ``"pallas-sharded"``).  Needs a ``partition=``.  Inside
+    ``FarmEngine(mesh=...)`` it is the composed lanes × spatial farm: lanes
+    over another axis of the same mesh, each lane's frame split by the
+    partition.
+
+``FarmEngine(mesh=...)`` with ``"torch"``, ``"cuda"`` or
+``"cuda-multistep"`` spreads the farm's lanes over a mesh axis, each lane
+shard on its own device (:mod:`repro_torch.core.streaming`).
 
 ``backend=None`` resolves to ``"cuda"`` on a CUDA device and to
 ``"torch"`` on the CPU.

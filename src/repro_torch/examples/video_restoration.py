@@ -62,14 +62,16 @@ def detector(backend, device):
     return detect
 
 
-def restore_loop(backend, device, unroll=1, sentinel=None):
-    """The restoration worker of the stream (the reference example's)."""
+def restore_loop(backend, device, unroll=1, sentinel=None, partition=None):
+    """The restoration worker of the stream (the reference example's);
+    ``partition`` splits each frame on ``"cuda-sharded"``."""
     from ..core.pattern import LoopOfStencilReduce
     from ..kernels import ref as R
     return LoopOfStencilReduce(
         f=R.restore_taps(2.0), k=1, combine="max", delta=R.abs_delta,
         cond=lambda r: r < 1e-3, boundary="reflect", max_iters=50,
-        unroll=unroll, backend=backend, sentinel=sentinel, device=device)
+        unroll=unroll, backend=backend, sentinel=sentinel,
+        partition=partition, device=device)
 
 
 def main(argv=None):

@@ -19,6 +19,9 @@ arrives, exactly like flaky hardware or a corrupted resident frame
 would.  That is what makes retry-into-a-fresh-slot a meaningful
 recovery: the retried item escapes the fault, and the slot keeps
 failing occupants until the engine's ``slot_patience`` retires it.
+On a farm over a mesh (``FarmEngine(mesh=...)``) the hook sees each lane
+shard's own (local lanes,) vectors, as under the reference's
+``shard_map``: a plan's lane indexes a lane within every lane shard.
 
 Stream-item corruption (``corrupt_indices``) is the complementary axis:
 the fault follows the ITEM (a NaN planted in its input array), so it is

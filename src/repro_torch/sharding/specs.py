@@ -15,8 +15,12 @@ axes, in the order ``axis_names`` lists them.  A mesh axis the partition
 does not name would hold replicas under ``shard_map``; the port computes
 one copy, on that axis's first device.
 
-The LM parts of the reference module (``param_spec`` and the rest) and
-``local_slot`` belong to later slices (ROADMAP.md queue A7b, A8, A10).
+A lane farm over a mesh (:class:`repro_torch.core.streaming.FarmEngine`
+with ``mesh=``) spreads its slots over one mesh axis: :func:`axis_devices`
+lists that axis's devices, :func:`local_slot` maps a slot to its lane shard
+and :func:`slice_partition` gives one lane shard's spatial partition.  The
+LM parts of the reference module (``param_spec`` and the rest) belong to
+later slices (ROADMAP.md queue A8, A10).
 """
 from __future__ import annotations
 
@@ -71,6 +75,31 @@ class Mesh:
     def __repr__(self):
         return (f"Mesh({self.shape}, devices="
                 f"{[str(d) for d in self.devices.flat]})")
+
+
+def axis_devices(mesh: Mesh, axis: str) -> list:
+    """The devices along mesh axis ``axis``, in order, the other axes at
+    their first index (the devices of the lane shards of a farm)."""
+    if axis not in mesh.shape:
+        raise ValueError(f"mesh has no axis {axis!r}")
+    at = [0] * mesh.devices.ndim
+    pos = mesh.axis_names.index(axis)
+    out = []
+    for c in range(mesh.shape[axis]):
+        at[pos] = c
+        out.append(mesh.devices[tuple(at)])
+    return out
+
+
+def local_slot(idx: int, lanes_local: int, shard: int) -> tuple:
+    """Map a GLOBAL lane-slot index onto lane shard ``shard`` (twin of the
+    reference's ``local_slot``, which reads the shard from ``axis_index``
+    inside ``shard_map``; here it is a host int).  Each lane shard owns
+    ``lanes_local`` consecutive slots, so slot ``idx`` lives at local index
+    ``idx - shard * lanes_local`` on exactly one shard.  Returns ``(owns,
+    local_idx)`` with ``local_idx`` clipped into range."""
+    li = int(idx) - shard * lanes_local
+    return 0 <= li < lanes_local, min(max(li, 0), lanes_local - 1)
 
 
 def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str],
@@ -165,12 +194,30 @@ class GridPartition:
         return self.devices[0]
 
 
-def _block_index(part: GridPartition, index: int, shape) -> tuple:
+def slice_partition(part: GridPartition, axis: str,
+                    index: int) -> GridPartition:
+    """``part`` on the sub-mesh at coordinate ``index`` of mesh axis
+    ``axis`` (an axis the partition does not split): the spatial partition
+    of one lane shard of a composed lanes x spatial farm."""
+    if axis in part.axis_names:
+        raise ValueError(f"mesh axis {axis!r} splits the grid; slice the "
+                         "partition along another axis")
+    mesh = part.mesh
+    pos = mesh.axis_names.index(axis)
+    sub = Mesh(np.take(mesh.devices, index, axis=pos),
+               mesh.axis_names[:pos] + mesh.axis_names[pos + 1:])
+    return GridPartition(sub, part.axis_names, part.array_axes)
+
+
+def _block_index(part: GridPartition, index: int, shape,
+                 batch: int = 0) -> tuple:
+    """Shard ``index``'s block of a grid of ``shape``; ``batch`` leading
+    axes (lanes) are not split and the array axes count after them."""
     idx = [slice(None)] * len(shape)
     for c, name, ax in zip(part.coords(index), part.axis_names,
                            part.array_axes):
-        size = shape[ax] // part.axis_size(name)
-        idx[ax] = slice(c * size, (c + 1) * size)
+        size = shape[batch + ax] // part.axis_size(name)
+        idx[batch + ax] = slice(c * size, (c + 1) * size)
     return tuple(idx)
 
 
@@ -188,25 +235,27 @@ def check_even(shape, part: GridPartition) -> None:
                 f"over mesh axis {name!r} (size {nsh})")
 
 
-def scatter_grid(a: torch.Tensor, part: GridPartition) -> list:
+def scatter_grid(a: torch.Tensor, part: GridPartition,
+                 batch: int = 0) -> list:
     """Split ``a`` into one block per shard (mesh order), each placed on
-    its shard's device — ``shard_map``'s ``in_specs`` for a grid."""
+    its shard's device — ``shard_map``'s ``in_specs`` for a grid.
+    ``batch`` leading axes (a lane stack's) go whole to every shard."""
     a = torch.as_tensor(a)
-    check_even(a.shape, part)
-    return [a[_block_index(part, i, a.shape)].to(dev)
+    check_even(a.shape[batch:], part)
+    return [a[_block_index(part, i, a.shape, batch)].to(dev)
             for i, dev in enumerate(part.devices)]
 
 
 def gather_grid(blocks: Sequence[torch.Tensor], part: GridPartition,
-                device=None) -> torch.Tensor:
+                device=None, batch: int = 0) -> torch.Tensor:
     """The global grid from its per-shard blocks (mesh order), on
     ``device`` (default: the partition's lead device) — ``shard_map``'s
-    ``out_specs`` for a grid."""
+    ``out_specs`` for a grid.  ``batch`` as for :func:`scatter_grid`."""
     device = part.lead if device is None else torch.device(device)
     shape = list(blocks[0].shape)
     for name, ax in zip(part.axis_names, part.array_axes):
-        shape[ax] *= part.axis_size(name)
+        shape[batch + ax] *= part.axis_size(name)
     out = torch.empty(shape, dtype=blocks[0].dtype, device=device)
     for i, blk in enumerate(blocks):
-        out[_block_index(part, i, shape)].copy_(blk)
+        out[_block_index(part, i, shape, batch)].copy_(blk)
     return out

@@ -289,6 +289,96 @@ def test_cuda_stream_chained_equals_classic_and_solo(cuda, backend, unroll,
 
 
 # ---------------------------------------------------------------------------
+# the streaming FarmEngine over a mesh: lanes over a mesh axis and the
+# composed lanes x spatial farm, against single-device solo runs
+# ---------------------------------------------------------------------------
+
+def restore_stream(backend, unroll, device, partition=None):
+    """The restoration loop, its prep and a stream of items whose trip
+    counts differ."""
+    items = [np.abs(x) for x in mixed_batch(n=7, shape=(64, 136))]
+    loop = TP.LoopOfStencilReduce(
+        f=TR.restore_taps(2.0), k=1, combine="max", cond=lambda r: r < 1e-3,
+        delta=TR.abs_delta, boundary="reflect", max_iters=40, unroll=unroll,
+        backend=backend, partition=partition, device=device)
+
+    def prep(item):
+        return item, (item, (item > 1.0).to(item.dtype))
+    return loop, prep, items
+
+
+def mesh_stream_against_solo(mesh, lanes, backend, unroll, continuous,
+                             chained=True, partition=None):
+    """A FarmEngine stream over ``mesh``: every index once, one launch a
+    lane-shard step a spatial shard, and every item equal to its solo run
+    on the mesh's first device (iters, and grids and reduces bit for
+    bit)."""
+    from repro_torch.core.streaming import FarmEngine
+    dev = mesh.devices.flat[0]
+    loop, prep, items = restore_stream(backend, unroll, dev, partition)
+    key = "stencil_sweep" if unroll == 1 else "multistep_sweep"
+    eng = FarmEngine(loop, lanes=lanes, prep=prep, segment=4, mesh=mesh,
+                     chained=chained, device=dev)
+    got, before = [], TK.launch_counts[key]
+    assert eng.run(items, got.append, continuous=continuous) == len(items)
+    launched = TK.launch_counts[key] - before
+    if continuous:
+        assert sorted(r.index for r in got) == list(range(len(items)))
+        assert eng.buffer_pointers() == eng.bound_pointers
+        spatial = partition.n_shards if partition is not None else 1
+        shard_steps = eng.lane_steps // (lanes // eng._nshards * unroll)
+        assert launched == shard_steps * spatial
+    single = TP.LoopOfStencilReduce(
+        f=loop.f, k=1, combine="max", cond=loop.cond, delta=loop.delta,
+        boundary="reflect", max_iters=40, unroll=unroll,
+        backend="cuda" if unroll == 1 else "cuda-multistep", device=dev)
+    by_index = ({r.index: r for r in got} if continuous
+                else dict(enumerate(got)))
+    for i, r in by_index.items():
+        a0, envs = prep(torch.as_tensor(items[i], device=dev))
+        solo = single.run(a0, env=envs)
+        assert int(solo.iters) == int(r.iters)
+        torch.testing.assert_close(r.a, solo.a.cpu(), rtol=0, atol=0)
+        torch.testing.assert_close(r.reduced.reshape(()),
+                                   solo.reduced.cpu(), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,unroll,continuous,chained", [
+    ("cuda", 1, False, True), ("cuda", 1, True, False),
+    ("cuda", 1, True, True), ("cuda-multistep", 3, True, True)])
+def test_cuda_lane_mesh_stream_equals_solo_runs(cuda, backend, unroll,
+                                                continuous, chained):
+    from repro_torch.sharding import make_mesh
+    mesh = make_mesh((2,), ("data",), devices=["cuda:0"] * 2)
+    mesh_stream_against_solo(mesh, 4, backend, unroll, continuous, chained)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 4])
+@pytest.mark.parametrize("continuous", [False, True])
+def test_cuda_composed_stream_equals_solo_runs(cuda, T, continuous):
+    from repro_torch.sharding import GridPartition, make_mesh
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cuda:0"] * 4)
+    mesh_stream_against_solo(mesh, 4, "cuda-sharded", T, continuous,
+                             partition=GridPartition(mesh, ("model",), (0,)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 4])
+def test_cuda_composed_stream_across_two_cards(cuda, T):
+    """Each lane shard's frame split over two cards: the strips cross by
+    peer copies and the per-lane reduces meet on the lead card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from repro_torch.sharding import GridPartition, make_mesh
+    mesh = make_mesh((2, 2), ("data", "model"),
+                     devices=["cuda:0", "cuda:1"] * 2)
+    mesh_stream_against_solo(mesh, 4, "cuda-sharded", T, True,
+                             partition=GridPartition(mesh, ("model",), (0,)))
+
+
+# ---------------------------------------------------------------------------
 # the kernel's own CTA tile: tiles that do not divide the interior, rows that
 # are not 16-byte aligned, the one-slot ring, lane stacks across tiles
 # ---------------------------------------------------------------------------
