@@ -11,8 +11,10 @@ Loop-of-stencil-reduce on "cuda" and "cuda-multistep", the lane farm
 ``farm_run``, the paper's §4 apps, the streaming FarmEngine on the §4.3
 restoration stream, the sharded 1:n tier ("cuda-sharded") on meshes of
 the card, the streaming FarmEngine over meshes of the card (lanes over a
-mesh axis, and the composed lanes x spatial farm), and the gemma2-9b
-scoring forward and greedy serving — on one CUDA card at full size:
+mesh axis, and the composed lanes x spatial farm), the gemma2-9b
+scoring forward and greedy serving, and the MoE, SSM and hybrid families
+(deepseek-moe-16b, qwen3-moe-30b-a3b, mamba2-130m, jamba-v0.1-52b) — on
+one CUDA card at full size:
 
   0. the card (nvidia-smi), torch/CUDA versions, kernel build time,
      registers and spills of the stencil kernel's Helmholtz, Sobel and
@@ -106,7 +108,11 @@ scoring forward and greedy serving — on one CUDA card at full size:
      fails the phase); the CUDA-core kernel's launch (grid, heads and
      positions a CTA, warps an SM, shared memory, registers); then that
      kernel in f32 at every head_dim (hd 96 included) at the local
-     layer's shape, each held against the plain version and timed;
+     layer's shape, each held against the plain version and timed; the
+     wgmma kernel at phases 17-18's attention shapes (hd 128, S 4096,
+     causal global: deepseek-moe-16b 16/16 heads, jamba-v0.1-52b 32/8)
+     within one bf16 ulp of plain, timed beside plain, flex_attention and
+     the bound;
  12. gemma2-9b at full width and depth in bf16, B=1, S=8192: the scoring
      forward on the kernel route (42 launches a forward) and on the einsum
      route, lm_loss, max|dlogits| and top-1 agreement gated; then in f32
@@ -116,7 +122,39 @@ scoring forward and greedy serving — on one CUDA card at full size:
  13. greedy serving of gemma2-9b in bf16: B=2 prompts of 4576 tokens, 32
      new tokens, ring caches on the local layers; two runs identical, and
      the teacher-forced forward's argmax against the tokens (exact in f32
-     at depth 2); then the ``kernels`` line;
+     at depth 2);
+ 17. the MoE family: (a) deepseek-moe-16b bf16 at full width and depth
+     (28 layers), B=1, S=4096 (capacity factor 1.25): the scoring forward
+     on the kernel route (28 wgmma launches a forward) and the einsum
+     route, lm_loss gap, max|dlogits|, top-1 agreement, drop_frac a MoE
+     layer and the share of router assignments that differ by layer,
+     gated end to end (loss, top-1, drop_frac) and layer by layer from
+     the kernel route's inputs (every layer's update gap, a MoE layer's
+     on tokens routed alike; assignments that differ; drop_frac), each
+     attention layer measured with the kernel on one route only; the
+     gates must fail a planted fault (drops clamped in range into slot
+     (e, 0)) and the layer gates a planted head swap; the profiler's
+     device time by part of the model; (b) the same in f32 at depth 2
+     (the CUDA-core kernel) within phase 12's f32 gates; (c) greedy
+     serving B=2 x 2016 + 32 (dropless under caches): warm prefill,
+     decode ms a step beside the bound of the bytes a step reads (every
+     expert), the idle share under the profiler, two runs identical,
+     agreement with the dropless teacher-forced argmax (exact in f32 at
+     depth 2); (d) expert parallel at depth 4, B=2, S=1024 on
+     ["cuda:0"] * 8 as (2, 4) "data" x "model": at capacity factor 8.0
+     within the bf16 gates of the dense dispatch, end to end and layer
+     by layer, which a planted fault (one model shard's partial left
+     out) must fail; at 1.25 both drop shares; (e) qwen3-moe-30b-a3b bf16 at depth 12 of 48 (cut for the
+     script's time), S=4096 on the einsum route (QK-norm): s/forward,
+     drop_frac, peak memory, two runs bit-equal;
+ 18. the SSM and hybrid families: (a) mamba2-130m bf16 at full width and
+     depth: the scoring forward at S=8192, one block's chunked SSD
+     against the sequential scan in f32 at S=1024 (1e-4 relative), greedy
+     serving B=2 x 1024 + 32 (prefill chunked, decode on the recurrence);
+     (b) jamba-v0.1-52b bf16 at depth 8 of 32 (one attention period: one
+     GQA 32/8 layer on the wgmma kernel, 7 Mamba-2 layers, 4 MoE layers),
+     S=4096 on both routes under 17(a)'s gates and planted fault, greedy
+     serving B=2 x 2016 + 32; then the ``kernels`` line;
   6. torch.profiler breakdown of the kernel loops (three runs on "cuda",
      one on "cuda-multistep" at T=4): device time by kernel and the
      device's idle share;
@@ -127,9 +165,9 @@ scoring forward and greedy serving — on one CUDA card at full size:
 Every phase runs, at the sizes above, in the order listed.  Phases 2-4, 9,
 10 and 14-16 are the stencil main path: the kernel launch counts are
 zeroed just before phase 2 and read just after phase 16 (the single-step
-launches also by shape, the multistep launches by T).  Phases 12-13 are
-the LM main path: the counts (the attention's by route) are zeroed just
-before phase 12 and read just after phase 13; the bf16 layers must take the wgmma
+launches also by shape, the multistep launches by T).  Phases 12-13 and
+17-18 are the LM main path: the counts (the attention's by route) are
+zeroed just before phase 12 and read just after phase 18; the bf16 layers must take the wgmma
 route and the f32 ones the CUDA-core route, and each route is its own
 entry of the ``kernels`` line.  Every phase's failure propagates: the
 exit code is non-zero and the final ok line is not printed.  Without a
@@ -840,11 +878,17 @@ def phase5_shard(gen, rate, device="cuda"):
 def profiled(fn):
     """Run ``fn`` under torch.profiler: (wall seconds, device-busy seconds,
     [(device µs, count, kernel name)] sorted by time)."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, secs = wall(fn)
+    rows = device_rows(prof)
+    return secs, sum(r[0] for r in rows) * 1e-6, rows
+
+
+def device_rows(prof):
+    """[(device µs, count, kernel name)] of a profile, sorted by time."""
+    import torch
     rows = []
     for ev in prof.key_averages():
         # device-side events only: CPU-side op entries repeat their
@@ -856,7 +900,7 @@ def profiled(fn):
         if us > 0:
             rows.append((us, ev.count, ev.key))
     rows.sort(reverse=True)
-    return secs, sum(r[0] for r in rows) * 1e-6, rows
+    return rows
 
 
 def phase6(gen, size, runs=3):
@@ -2433,8 +2477,8 @@ def library_attention(q, k, v, window, cap):
         flex = torch.compile(flex_attention, dynamic=False)
 
         def fn():
-            return flex(q4, k4, v4, score_mod=capped, block_mask=bm,
-                        enable_gqa=True)
+            return flex(q4, k4, v4, score_mod=capped if cap else None,
+                        block_mask=bm, enable_gqa=True)
         out = fn().reshape(BH, S, hd)
         sync()
         return fn, "flex_attention", out
@@ -2632,7 +2676,8 @@ def phase11(gen, rate):
             del q, k, v
             torch.cuda.empty_cache()
         del qkv
-    return rows, err, swa_core_by_hd(side, rate)
+    return rows, err, swa_core_by_hd(side, rate), swa_family_shapes(side,
+                                                                    rate)
 
 
 def swa_launch_note(info) -> str:
@@ -2676,6 +2721,69 @@ def swa_core_by_hd(gen, rate):
             f"window {window}, softcap 50): {ms:.4f} ms ({tflops:.2f} "
             f"TFLOP/s), bound {bound_ms:.4f} ms ({bound_by}), max_abs_err "
             f"vs plain {e!r}; {swa_launch_note(info)}")
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return out
+
+
+# the wgmma kernel at the attention shapes of phases 17-18 (hd 128, S 4096,
+# causal, global, no softcap): (query heads, kv heads)
+FAMILY_SWA_SHAPES = {"deepseek-moe-16b": (16, 16), "jamba-v0.1-52b": (32, 8)}
+FAMILY_SEQ = 4096
+
+
+def swa_family_shapes(gen, rate):
+    """The wgmma kernel at the MoE and hybrid families' attention shapes,
+    held against the plain version within one bf16 ulp (one kv head's
+    group at a time), then timed beside the plain version, a library
+    call's (flex_attention) and the function's bound."""
+    import torch
+    from repro_torch.kernels import swa_attention as A
+    S, hd, out = FAMILY_SEQ, 128, {}
+    for name, (H, KH) in FAMILY_SWA_SHAPES.items():
+        G = H // KH
+        q, k, v = (torch.randn((n, S, hd), generator=gen, device=DEVICE)
+                   .to(torch.bfloat16) for n in (H, KH, KH))
+        before = A.launch_counts["wgmma"]
+        got = A.swa_attention(q, k, v, window=0, causal=True)
+        if A.launch_counts["wgmma"] != before + 1:
+            raise AssertionError(f"phase11 {name}: missed the wgmma route")
+        e = use = 0.0
+        for g in range(KH):
+            want = A.swa_attention_plain(q[g * G:(g + 1) * G], k[g:g + 1],
+                                         v[g:g + 1], window=0, causal=True)
+            part = got[g * G:(g + 1) * G]
+            e = max(e, max_err(part, want))
+            use = max(use, limit_use(part, want, TOL_SWA_BF16_RTOL,
+                                     TOL_SWA_BF16_ATOL))
+            del want, part
+        if not use <= 1.0:
+            raise AssertionError(
+                f"phase11 wgmma {name} (H {H}, KH {KH}, hd {hd}, S {S}): "
+                f"kernel/plain outside one bf16 ulp (use {use!r})")
+        ms = cuda_ms(lambda: A.swa_attention(q, k, v, window=0, causal=True),
+                     iters=10, warmup=2)
+        plain_ms = cuda_ms(lambda: A.swa_attention_plain(
+            q, k, v, window=0, causal=True), iters=2, warmup=1)
+        torch.cuda.empty_cache()
+        fn, lib_label, _ = library_attention(q, k, v, 0, 0.0)
+        lib_ms = cuda_ms(fn, iters=10, warmup=2) if fn else None
+        del fn
+        bound_ms, bound_by, split_ms = swa_bounds(S, 0, H, KH, hd, 2,
+                                                  rate=rate)
+        tflops = 4 * hd * band_pairs(S, 0) * H / (ms * 1e-3) / 1e12
+        out[name] = dict(heads=H, kv_heads=KH, head_dim=hd, seq=S, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, split_bound_ms=split_ms,
+                         tflops=tflops, library_ms=lib_ms,
+                         library=lib_label, err=e, limit_use=use)
+        log(f"[phase11] swa_attention {name} (H {H}, KH {KH}, hd {hd}, S "
+            f"{S}, causal global, no softcap, bf16, wgmma route): kernel "
+            f"{ms:.4f} ms ({tflops:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}, bf16 tensor cores), "
+            f"split-design bound {split_ms:.4f} ms, {lib_label} "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} ms; max_abs_err"
+            f" vs plain {e!r}, {use:.4f} of the one-ulp limit")
         del q, k, v, got
         torch.cuda.empty_cache()
     return out
@@ -2920,6 +3028,825 @@ def lm_phases(gen):
     return r12, r13, r12f, r13f
 
 
+# ---------------------------------------------------------------------------
+# phases 17-18: the MoE, SSM and hybrid families
+# ---------------------------------------------------------------------------
+
+DEVICE = "cuda"
+MOE_ARCH = "deepseek-moe-16b"  # phase 17: full width and depth
+SERVE_FAMILY_NEW = 32          # new tokens a served sequence (17(c), 18)
+MOE_SERVE_PROMPT = 2016        # 17(c), 18(b): 2016 + 32 = 2048 = 16 · 128
+EP_DEPTH, EP_SEQ = 4, 1024     # 17(d): dense layer 0 and three MoE layers
+# 17(e): cut to 12 of 48 layers (8.1 B parameters) for the script's time
+QWEN_MOE_ARCH, QWEN_MOE_DEPTH = "qwen3-moe-30b-a3b", 12
+SSM_ARCH, SSM_SEQ = "mamba2-130m", 8192             # 18(a): full depth
+SSM_SERVE_PROMPT, SSD_CHECK_SEQ = 1024, 1024
+# 18(b): one attention period of 8 layers (13.3 B parameters) of 32
+HYBRID_ARCH, HYBRID_DEPTH = "jamba-v0.1-52b", 8
+TOL_SSD_REL = 1e-4     # ssd_chunked vs ssd_ref in f32 (max|d| / max|ref|)
+# bf16 MoE forwards, kernel route against einsum route.  Free-running,
+# the routes' bf16 roundings move tokens across router ties and the flips
+# compound with depth: the first full-depth deepseek-moe-16b run read
+# assignments differing by 5.7% at the first MoE layer and 35% at the
+# last, an lm_loss gap of 1.03e-4 (relative), top-1 agreement 0.8115 and
+# a drop_frac gap of 8.1e-5 a MoE layer (jamba at depth 8: 2.7e-5,
+# 0.9724, 0).  The end-to-end limits sit a few times over those readings,
+# which a planted fault (drops clamped into slot (e, 0), the bug the
+# reference's comment names) also passes (0.000125, 0.7647, 0.00021).
+# The layer gates hold the routes layer by layer from the same input
+# (teacher-forced on the kernel route), where nothing compounds: the
+# worst layer's update gap (a MoE layer's on tokens routed and kept alike
+# on both routes), the worst MoE layer's share of assignments that
+# differ and its drop_frac gap.  Their full-depth readings: 0.0110,
+# 0.0109, 3.3e-4 (jamba: 0.0097 at its attention layer, 0, 0: its MoE
+# layers are SSM layers, where the routes compute alike); the planted
+# drop clamp's update gap 0.29-0.35 (jamba 0.62-0.64), a planted head
+# swap's 1.09 (jamba 0.29).  Expert parallel against the dense dispatch
+# at capacity factor 8.0 (17(d)): 0.0038, 0, 0; one model shard's partial
+# left out 0.55.
+TOL_MOE_LOSS_BF16 = 5e-4
+MIN_MOE_TOP1_BF16 = 0.5
+TOL_MOE_DROP_BF16 = 5e-4
+TOL_MOE_LAYER_REL = 0.05
+MAX_MOE_LAYER_FLIPS = 0.04
+TOL_MOE_LAYER_DROP = 1e-3
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Every MoE router's (top-k expert ids (T, k), their probabilities),
+    in call order (the expert-parallel dispatch's too)."""
+    from repro_torch.models import layers as TL
+    from repro_torch.models import moe_parallel as MP
+    real, seen = TL.route, []
+
+    def rec(router, xt, top_k):
+        out = real(router, xt, top_k)
+        seen.append((out[3].clone(), out[2].clone()))
+        return out
+    TL.route = MP.route = rec
+    try:
+        yield seen
+    finally:
+        TL.route = MP.route = real
+
+
+@contextlib.contextmanager
+def einsum_route():
+    """Attention on the einsum route (the kernel route is the card's
+    default)."""
+    from repro_torch.models import attention as TA
+    TA.set_flash_swa(False)
+    try:
+        yield
+    finally:
+        TA.set_flash_swa(None)
+
+
+@contextlib.contextmanager
+def planted_drop_clamp():
+    """The planted fault: dropped assignments clamped in range, into slot
+    (e, 0) of their expert, where they overwrite the first token's row."""
+    import torch
+    from repro_torch.models import layers as TL
+    real = TL.dispatch_index
+    TL.dispatch_index = lambda keep, le, pos, e_loc: (
+        le.clamp(0, e_loc - 1), torch.where(keep, pos, 0))
+    try:
+        yield
+    finally:
+        TL.dispatch_index = real
+
+
+@contextlib.contextmanager
+def planted_head_swap():
+    """A planted attention fault on the kernel route: the kernel's output
+    rows of heads 0 and 1 swapped, a head-mapping bug."""
+    from repro_torch.kernels import swa_attention as A
+    real = A.swa_attention
+
+    def swapped(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        return out[[1, 0, *range(2, out.shape[0])]]
+    A.swa_attention = swapped
+    try:
+        yield
+    finally:
+        A.swa_attention = real
+
+
+@contextlib.contextmanager
+def expert_parallel(mesh):
+    """MoE layers dispatch expert-parallel on ``mesh`` (batch over
+    "data")."""
+    import functools
+    from repro_torch.models import transformer as T
+    from repro_torch.models.moe_parallel import expert_parallel_moe
+    T.set_moe_parallel(functools.partial(expert_parallel_moe, mesh=mesh,
+                                         dp_axes=("data",)))
+    try:
+        yield
+    finally:
+        T.set_moe_parallel(None)
+
+
+@contextlib.contextmanager
+def planted_shard_skip(mesh):
+    """A planted expert-parallel fault: model shard 1's partial output left
+    out of the sum (its experts computed, their rows zeroed)."""
+    import torch
+    from repro_torch.models import moe_parallel as MP
+    real = MP.expert_ffn
+
+    def skip(xt, a, keep, w_gate, w_up, w_down, *, e_first, **kw):
+        y = real(xt, a, keep, w_gate, w_up, w_down, e_first=e_first, **kw)
+        return torch.zeros_like(y) if e_first == w_up.shape[0] else y
+    MP.expert_ffn = skip
+    try:
+        with expert_parallel(mesh):
+            yield
+    finally:
+        MP.expert_ffn = real
+
+
+def n_moe_layers(cfg) -> int:
+    from repro_torch.models import transformer as T
+    return sum(s.ffn == "moe" for s in T.layer_specs(cfg))
+
+
+def cut_depth(model, depth):
+    """The first ``depth`` layers of ``model`` as a model of their own,
+    sharing its tensors (no copy)."""
+    import torch
+    view = torch.nn.Module()
+    for name in ("embed", "final_norm", "unembed"):
+        if hasattr(model, name):
+            setattr(view, name, getattr(model, name))
+    view.layers = torch.nn.ModuleList(list(model.layers)[:depth])
+    view.specs = model.specs[:depth]
+    return view
+
+
+def moe_gates(g) -> bool:
+    """The end-to-end gates on a free-running forward."""
+    return (g["loss_rel"] <= TOL_MOE_LOSS_BF16
+            and g["top1"] >= MIN_MOE_TOP1_BF16
+            and g["drop_gap"] <= TOL_MOE_DROP_BF16)
+
+
+def layer_gates(g) -> bool:
+    """The layer-wise gates (``layerwise_routes``)."""
+    return (g["rel"] <= TOL_MOE_LAYER_REL
+            and g["flips"] <= MAX_MOE_LAYER_FLIPS
+            and g["drop_gap"] <= TOL_MOE_LAYER_DROP)
+
+
+def gate_shares(g) -> str:
+    return (f"lm_loss rel {g['loss_rel']:.3g} ({g['loss_rel'] / TOL_MOE_LOSS_BF16:.3f}"
+            f" of its limit), top-1 {g['top1']:.5f} ({(1 - g['top1']) / (1 - MIN_MOE_TOP1_BF16):.3f}"
+            f" of its limit), drop_frac gap {g['drop_gap']:.3g} a MoE layer "
+            f"({g['drop_gap'] / TOL_MOE_DROP_BF16:.3f} of its limit), "
+            f"max|dlogits| {g['max_dlogits']:.4g}")
+
+
+def layer_shares(g) -> str:
+    attn = [a["rel"] for a in g["attn"]]
+    return (f"worst layer: update gap {g['rel']:.4g} "
+            f"({g['rel'] / TOL_MOE_LAYER_REL:.3f} of its limit; in a MoE "
+            f"layer over tokens routed alike), assignments that differ "
+            f"{g['flips']:.4g} ({g['flips'] / MAX_MOE_LAYER_FLIPS:.3f} of its"
+            f" limit), drop_frac gap {g['drop_gap']:.3g} "
+            f"({g['drop_gap'] / TOL_MOE_LAYER_DROP:.3f} of its limit); "
+            f"tokens routed alike {g['same']:.4f} at least; "
+            f"{len(attn)} attention layers' update gaps "
+            + (f"{min(attn):.4g} to {max(attn):.4g}" if attn else "none"))
+
+
+def route_key(cfg, top_i, top_p):
+    """(T, k): each token's experts in ascending order, each times two
+    plus its kept flag at the forward's capacity: equal rows mean a token
+    routed to the same experts and kept by the same ones."""
+    import torch
+    from repro_torch.models import layers as TL
+    T_, k = top_i.shape
+    C = TL.capacity(T_, k, cfg.n_experts, cfg.moe_capacity_factor,
+                    cfg.moe_dropless)
+    a = TL.sort_assignments(top_i, top_p)
+    keep = torch.empty_like(a.pos)
+    keep[a.order] = (a.pos < C).long()
+    return (top_i * 2 + keep.view(T_, k)).sort(dim=-1).values
+
+
+def layerwise_routes(cfg, model, batch, route_a, route_b, *, ep_shards=1):
+    """Two routes layer by layer, teacher-forced on route a: each layer runs
+    on both (``route_a()``/``route_b()``: context managers) from route a's
+    input to it, so rounding gaps do not compound through the router over
+    depth.  Route a may dispatch expert-parallel over ``ep_shards`` model
+    shards, whose router runs on each.  Returns the worst layer's
+    ||d_a - d_b|| / ||d_b|| (d: the layer's update of the residual stream)
+    over all its tokens, in a MoE layer over those routed to the same
+    experts and kept by the same ones on both routes; by MoE layer, the
+    worst share of (token, choice) assignments that differ, the least
+    share of tokens routed alike and the worst drop_frac gap; and for each
+    attention layer its gap, the tokens it was taken over and its swa
+    launches on either route."""
+    import torch
+    from repro_torch.models import transformer as T
+    x, positions = T.embed_inputs(cfg, model, batch["tokens"])
+    D = x.shape[-1]
+
+    def run(route, spec, p):
+        before = swa_launches()
+        with recorded_routes() as seen, route():
+            y, _, aux = T.apply_layer(cfg, spec, p, x, positions=positions)
+        return y, aux, seen, swa_launches() - before
+
+    out = dict(rel=0.0, flips=0.0, same=1.0, drop_gap=0.0, attn=[])
+    for spec, p in zip(model.specs, model.layers):
+        y_a, aux_a, seen_a, n_a = run(route_a, spec, p)
+        y_b, aux_b, seen_b, n_b = run(route_b, spec, p)
+        d_a = (y_a - x).float().reshape(-1, D)
+        d_b = (y_b - x).float().reshape(-1, D)
+        rel = (d_a - d_b).norm(dim=-1) / d_b.norm(dim=-1).clamp_min(1e-30)
+        del d_a, d_b, y_b
+        if spec.ffn == "moe":
+            shards = seen_a[::ep_shards]       # one router call a data shard
+            top_a = torch.cat([r[0] for r in shards])
+            same = (torch.cat([route_key(cfg, *r) for r in shards])
+                    == route_key(cfg, *seen_b[0])).all(dim=-1)
+            rel = rel[same]
+            out["flips"] = max(out["flips"], float(
+                (top_a != seen_b[0][0]).float().mean()))
+            out["same"] = min(out["same"], float(same.float().mean()))
+            out["drop_gap"] = max(out["drop_gap"], abs(
+                float(aux_a["drop_frac"]) - float(aux_b["drop_frac"])))
+        gap = float(rel.max()) if rel.numel() else 0.0
+        out["rel"] = max(out["rel"], gap)
+        if spec.kind == "attn":
+            out["attn"].append(dict(rel=gap, tokens=rel.numel(),
+                                    launches=(n_a, n_b)))
+        x = y_a
+    return out
+
+
+def family_route_compare(cfg, model, batch):
+    """A MoE or hybrid scoring forward on the kernel route (the default on
+    the card) against the einsum route: times and launches a forward, the
+    lm_loss gap, max|dlogits|, top-1 agreement, each route's drop share a
+    MoE layer and the share of (token, choice) assignments that differ, by
+    layer; both layer by layer; then the kernel route with the planted
+    drop clamp, held against the einsum route the same ways, and layer by
+    layer with the planted head swap."""
+    import torch
+    from repro_torch.kernels import swa_attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.train.objective import lm_loss
+    n_moe = n_moe_layers(cfg)
+    before = dict(A.launch_counts)
+    with recorded_routes() as seen:
+        logits_k, s_k, n_k = forward_runs(cfg, model, batch)
+    by_route = {k: (A.launch_counts[k] - before[k]) / len(n_k)
+                for k in before}
+    routes_k = [r[0] for r in seen[-n_moe:]]
+    loss_k, met_k = lm_loss(cfg, model, batch)
+    loss_k = float(loss_k)
+    finite = bool(torch.isfinite(logits_k).all())
+    with einsum_route(), recorded_routes() as seen:
+        logits_e, s_e, n_e = forward_runs(cfg, model, batch, reps=1)
+        routes_e = [r[0] for r in seen[-n_moe:]]
+        loss_e, met_e = lm_loss(cfg, model, batch)
+        loss_e = float(loss_e)
+    finite = finite and bool(torch.isfinite(logits_e).all())
+    drop_k = float(met_k["drop_frac"]) / n_moe
+    drop_e = float(met_e["drop_frac"]) / n_moe
+    gap = route_gap(logits_k, loss_k, logits_e, loss_e)
+    gap["drop_gap"] = abs(drop_k - drop_e)
+    flips = [float((a != b).float().mean())
+             for a, b in zip(routes_k, routes_e)]
+    del logits_k, routes_k, routes_e
+    layer = layerwise_routes(cfg, model, batch, contextlib.nullcontext,
+                             einsum_route)
+    before = swa_launches()
+    with planted_drop_clamp():
+        logits_f, aux_f = T.forward(cfg, model, batch)
+        loss_f = float(lm_loss(cfg, model, batch)[0])
+    fault = route_gap(logits_f, loss_f, logits_e, loss_e)
+    fault["drop_gap"] = abs(float(aux_f["drop_frac"]) / n_moe - drop_e)
+    del logits_f, logits_e
+    torch.cuda.empty_cache()
+    fault["layer"] = layerwise_routes(cfg, model, batch, planted_drop_clamp,
+                                      einsum_route)
+    fault["heads"] = layerwise_routes(cfg, model, batch, planted_head_swap,
+                                      einsum_route)
+    fault["launches"] = swa_launches() - before
+    return dict(s_kernel=s_k, s_einsum=s_e, launches_kernel=n_k,
+                launches_einsum=n_e, by_route=by_route, loss_kernel=loss_k,
+                loss_einsum=loss_e, drop_kernel=drop_k, drop_einsum=drop_e,
+                flips=flips, finite=finite, layer=layer, fault=fault, **gap)
+
+
+def forward_breakdown(cfg, model, batch):
+    """Where one scoring forward's device time goes, from torch.profiler:
+    the kernels launched inside each part of the layers (ranges opened
+    around the model's functions for this run), the rest as "other"
+    (embedding, norms, residual adds).  Returns (wall s, busy s, {part:
+    device s})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import layers as TL
+    from repro_torch.models import ssm as TS
+    from repro_torch.models import transformer as T
+    parts = [(TL, "route", "router"), (TL, "sort_assignments", "sort"),
+             (TL, "dispatch", "dispatch"), (TL, "experts", "expert products"),
+             (TL, "combine", "combine"), (TL, "mlp", "shared expert"),
+             (T, "mlp", "dense MLP"), (T, "attention", "attention"),
+             (TS, "mamba2_block", "Mamba-2 block"), (T, "lm_head", "head")]
+    real = {(m, n): getattr(m, n) for m, n, _ in parts}
+
+    def ranged(fn, label):
+        def run(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return run
+    for m, n, label in parts:
+        setattr(m, n, ranged(real[(m, n)], label))
+    try:
+        T.forward(cfg, model, batch)                    # warm
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, secs = wall(lambda: T.forward(cfg, model, batch))
+    finally:
+        for (m, n), fn in real.items():
+            setattr(m, n, fn)
+    labels = {label for _, _, label in parts}
+    # the ranges also appear as device-side spans: not kernels, not busy
+    busy = sum(r[0] for r in device_rows(prof) if r[2] not in labels) * 1e-6
+    out = dict.fromkeys(sorted(labels), 0.0)
+    for ev in prof.events():
+        # a range's CPU event: the kernels launched inside it
+        if ev.name in labels and ev.device_type == DeviceType.CPU:
+            out[ev.name] += ev.device_time_total * 1e-6
+    out["other"] = busy - sum(out.values())
+    return secs, busy, out
+
+
+def breakdown_line(phase, label, cfg, model, batch) -> dict:
+    """Print and return ``forward_breakdown``'s device time by part."""
+    secs, busy, parts = forward_breakdown(cfg, model, batch)
+    log(f"[{phase}] {label} forward under the profiler: wall "
+        f"{secs * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms (idle share "
+        f"{1 - busy / secs:.3f}); device ms by part: "
+        + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in sorted(
+            parts.items(), key=lambda kv: -kv[1]) if v))
+    return dict(wall_s=secs, busy_s=busy, parts_s=parts)
+
+
+def report_family_forward(phase, label, cfg, r, S):
+    """Print a family_route_compare result and hold it to the gates."""
+    from repro_torch.models import transformer as T
+    n_attn = sum(s.kind == "attn" for s in T.layer_specs(cfg))
+    log(f"[{phase}] {label}: kernel route {r['s_kernel']:.4f} s/forward "
+        f"({S / r['s_kernel']:.0f} tokens/s), swa launches per forward "
+        f"{r['launches_kernel']} (by route {r['by_route']}); "
+        f"einsum route {r['s_einsum']:.4f} s/forward ({S / r['s_einsum']:.0f}"
+        f" tokens/s), launches {r['launches_einsum']}; lm_loss kernel "
+        f"{r['loss_kernel']!r} einsum {r['loss_einsum']!r}; drop_frac a MoE "
+        f"layer kernel {r['drop_kernel']:.6f} einsum {r['drop_einsum']:.6f};"
+        f" finite {r['finite']}")
+    log(f"[{phase}] {label}: routes: {gate_shares(r)}")
+    log(f"[{phase}] {label}: share of (token, choice) router assignments "
+        f"that differ between the routes, by MoE layer: "
+        f"{[round(f, 5) for f in r['flips']]}")
+    log(f"[{phase}] {label}: layer by layer (teacher-forced on the kernel "
+        f"route): {layer_shares(r['layer'])}")
+    log(f"[{phase}] {label}: planted fault (drops clamped into slot (e, 0)) "
+        f"vs einsum: {gate_shares(r['fault'])}; layer by layer: "
+        f"{layer_shares(r['fault']['layer'])}")
+    log(f"[{phase}] {label}: planted fault (heads 0 and 1 of the kernel's "
+        f"output swapped) vs einsum, layer by layer: "
+        f"{layer_shares(r['fault']['heads'])}")
+    log(f"[{phase}] {label}: routes pass the end-to-end gates "
+        f"{moe_gates(r)} and the layer gates {layer_gates(r['layer'])}; "
+        f"the planted drop clamp passes them {moe_gates(r['fault'])} and "
+        f"{layer_gates(r['fault']['layer'])}, the planted head swap the "
+        f"layer gates {layer_gates(r['fault']['heads'])}")
+    attn = r["layer"]["attn"]
+    if not (len(attn) == n_attn and all(
+            a["launches"] == (1, 0) and a["tokens"] > 0 for a in attn)):
+        raise AssertionError(
+            f"{phase} {label}: the attention layers' update gaps were not "
+            f"all measured with the kernel on one route and the einsum on "
+            f"the other: {attn} (want {n_attn} layers, launches (1, 0))")
+    if not (all(n == n_attn for n in r["launches_kernel"])
+            and r["by_route"]["wgmma"] == n_attn
+            and all(n == 0 for n in r["launches_einsum"])):
+        raise AssertionError(
+            f"{phase} {label}: launches per forward {r['launches_kernel']} "
+            f"({r['by_route']}) on the kernel route, "
+            f"{r['launches_einsum']} on the einsum route; want {n_attn} "
+            "(all wgmma) and 0")
+    if not r["finite"]:
+        raise AssertionError(f"{phase} {label}: non-finite logits")
+    if not (moe_gates(r) and layer_gates(r["layer"])):
+        raise AssertionError(f"{phase} {label}: routes differ: "
+                             f"{gate_shares(r)}; {layer_shares(r['layer'])}")
+    if moe_gates(r["fault"]) and layer_gates(r["fault"]["layer"]):
+        raise AssertionError(f"{phase} {label}: the gates pass the planted "
+                             f"drop clamp: {gate_shares(r['fault'])}; "
+                             f"{layer_shares(r['fault']['layer'])}")
+    if layer_gates(r["fault"]["heads"]):
+        raise AssertionError(f"{phase} {label}: the layer gates pass the "
+                             f"planted head swap: "
+                             f"{layer_shares(r['fault']['heads'])}")
+
+
+def decode_bound(model, caches, rate):
+    """(GB, ms): the bytes one decode step must move as the code runs it
+    -- every parameter but the embedding table (of which it gathers B
+    rows; tied embeddings count once, as the unembedding) and every cache
+    tensor, read once -- over the card's memory rate."""
+    params = sum(p.numel() * p.element_size()
+                 for n, p in model.named_parameters() if n != "embed")
+    if not hasattr(model, "unembed"):
+        params += model.embed.numel() * model.embed.element_size()
+    cache = sum(t.numel() * t.element_size() for c in caches
+                for t in c.values())
+    nbytes = params + cache
+    return nbytes / 1e9, nbytes / rate * 1e3
+
+
+def family_serve(phase, gen, cfg, model, label, prompt_len, cache_dtype,
+                 rate, profile=True):
+    """Greedy serving: B=2 prompts of ``prompt_len`` tokens and
+    SERVE_FAMILY_NEW new ones, run twice; the teacher-forced forward of
+    the dropless config over prompt + tokens; warm prefill, decode ms a
+    step, ``decode_step`` alone, the decode bound and (``profile``) the
+    device's idle share over decode steps."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import GenerateConfig, generate, prefill
+    B, P, N = 2, prompt_len, SERVE_FAMILY_NEW
+    max_seq = P + N
+    prompt = torch.randint(2, cfg.vocab_size, (B, P), generator=gen,
+                           device=DEVICE)
+    gcfg = GenerateConfig(max_new_tokens=N, eos_id=1)
+    runs = [wall(lambda: generate(cfg, model, prompt, gcfg, max_seq=max_seq,
+                                  cache_dtype=cache_dtype))
+            for _ in range(2)]
+    (out, lengths, iters), t_gen = runs[0]
+    (out2, lengths2, iters2), t_gen2 = runs[1]
+    same = (torch.equal(out, out2) and torch.equal(lengths, lengths2)
+            and int(iters) == int(iters2))
+    before = swa_launches()
+    full = torch.cat([prompt, out.long()], dim=1)
+    logits, _ = T.forward(dataclasses.replace(cfg, moe_dropless=True), model,
+                          {"tokens": full})
+    launched = swa_launches() - before
+    exp = logits[:, P - 1:-1].argmax(dim=-1)
+    del logits
+    torch.cuda.empty_cache()
+    hits = total = 0
+    for b in range(B):
+        L = int(lengths[b])
+        hits += int((out[b, :L].long() == exp[b, :L]).sum())
+        total += L
+    pre = [wall(lambda: prefill(cfg, model, prompt, max_seq=max_seq,
+                                cache_dtype=cache_dtype)) for _ in range(2)]
+    t_pre = sum(t for _, t in pre) / len(pre)
+    (_, caches), _ = pre[-1]
+    del pre
+    decode_ms = ((t_gen + t_gen2) / 2 - t_pre) / max(int(iters), 1) * 1e3
+
+    @torch.no_grad()
+    def decode(steps):
+        for i in range(steps):
+            T.decode_step(cfg, model, caches, out[:, i:i + 1], P + i)
+    decode(4)                                          # warm-up
+    step_ms = sum(wall(lambda: decode(16))[1] for _ in range(2)) / 32 * 1e3
+    gb, bound_ms = decode_bound(model, caches, rate)
+    idle = None
+    if profile:
+        steps = 4
+        secs, busy, rows = profiled(lambda: decode(steps))
+        idle = 1 - busy / secs
+        log(f"[{phase}] {label}: {steps} decode steps under the profiler: "
+            f"wall {secs / steps * 1e3:.3f} ms a step, device busy "
+            f"{busy / steps * 1e3:.3f} ms (idle share {idle:.3f}), "
+            f"{sum(r[1] for r in rows) / steps:.0f} kernels a step")
+        for us, count, key in rows[:6]:
+            log(f"[{phase}]   {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    del caches
+    torch.cuda.empty_cache()
+    agree = hits / total
+    log(f"[{phase}] {label}: greedy serving B={B} prompt {P} + {N} new: "
+        f"prefill {t_pre:.4f} s (warm), generate {t_gen:.4f} / {t_gen2:.4f}"
+        f" s, iters {int(iters)}, decode {decode_ms:.3f} ms per step "
+        f"((generate - warm prefill) / iters), decode_step alone "
+        f"{step_ms:.3f} ms; decode bound {bound_ms:.3f} ms a step ({gb:.2f}"
+        f" GB of weights and caches a step, reckoned from the code, at "
+        f"{rate / 1e12:.2f} TB/s); lengths {lengths.tolist()}; two runs "
+        f"identical {same}; teacher-forced dropless forward {launched} swa "
+        f"launches, greedy = argmax on {hits}/{total} tokens ({agree:.4f})")
+    if not same:
+        raise AssertionError(f"{phase} {label}: two greedy runs differ")
+    return dict(prefill_s=t_pre, generate_s=(t_gen, t_gen2),
+                decode_ms=decode_ms, step_ms=step_ms, bound_ms=bound_ms,
+                bound_gb=gb, iters=int(iters), agree=agree, same=same,
+                idle=idle, launched=launched)
+
+
+def family_batch(gen, cfg, B, S):
+    import torch
+    V = cfg.vocab_size
+    return {"tokens": torch.randint(0, V, (B, S), generator=gen,
+                                    device=DEVICE),
+            "labels": torch.randint(0, V, (B, S), generator=gen,
+                                    device=DEVICE)}
+
+
+def model_note(cfg, model) -> str:
+    import torch
+    n = sum(p.numel() for p in model.parameters())
+    return (f"{cfg.num_layers} layers, d {cfg.d_model}, {n / 1e9:.3f} B "
+            f"parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+            "allocated")
+
+
+def phase17_ep(gen, cfg, model):
+    """17(d): expert parallel at full width, depth 4, B=2, S=1024, on a
+    (2, 4) "data" x "model" mesh that repeats the card: at capacity
+    factor 8.0 (no drops) against the dense dispatch within the bf16
+    gates, end to end and layer by layer, where a planted fault (one model
+    shard's partial left out) must fail; at 1.25 both drop shares
+    (capacity is per data shard)."""
+    import dataclasses
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding import make_mesh
+    from repro_torch.train.objective import lm_loss
+    mesh = make_mesh((2, 4), ("data", "model"), devices=["cuda:0"] * 8)
+    view = cut_depth(model, EP_DEPTH)
+    batch = family_batch(gen, cfg, 2, EP_SEQ)
+    out = {}
+    for cf in (8.0, 1.25):
+        c = dataclasses.replace(cfg, num_layers=EP_DEPTH,
+                                moe_capacity_factor=cf)
+        n_moe = n_moe_layers(c)
+        (logits_d, _), s_d = wall(lambda: T.forward(c, view, batch))
+        loss_d, met_d = lm_loss(c, view, batch)
+        with expert_parallel(mesh):
+            (logits_p, _), s_p = wall(lambda: T.forward(c, view, batch))
+            loss_p, met_p = lm_loss(c, view, batch)
+        # the CE: the aux terms differ by design (per data shard)
+        g = route_gap(logits_p, float(met_p["loss"]), logits_d,
+                      float(met_d["loss"]))
+        g["lm_loss_rel"] = abs(float(loss_p) - float(loss_d)) \
+            / abs(float(loss_d))
+        g["drop_dense"] = float(met_d["drop_frac"]) / n_moe
+        g["drop_parallel"] = float(met_p["drop_frac"]) / n_moe
+        g["drop_gap"] = abs(g["drop_dense"] - g["drop_parallel"])
+        g.update(s_dense=s_d, s_parallel=s_p)
+        del logits_d, logits_p
+        out[cf] = g
+        log(f"[phase17] (d) expert parallel, {MOE_ARCH} bf16 depth "
+            f"{EP_DEPTH}, B=2, S={EP_SEQ}, mesh (2, 4) data x model of "
+            f"['cuda:0'] * 8, capacity factor {cf}: forward {s_p:.4f} s "
+            f"(dense dispatch {s_d:.4f} s); drop_frac a MoE layer: "
+            f"parallel {g['drop_parallel']:.6f}, dense {g['drop_dense']:.6f};"
+            f" parallel vs dense: {gate_shares(g)} (CE; lm_loss with the "
+            f"aux terms rel {g['lm_loss_rel']:.3g})")
+    g = out[8.0]
+    c = dataclasses.replace(cfg, num_layers=EP_DEPTH, moe_capacity_factor=8.0)
+    tp = mesh.shape["model"]
+    g["layer"] = layerwise_routes(c, view, batch,
+                                  lambda: expert_parallel(mesh),
+                                  contextlib.nullcontext, ep_shards=tp)
+    g["fault_layer"] = layerwise_routes(c, view, batch,
+                                        lambda: planted_shard_skip(mesh),
+                                        contextlib.nullcontext, ep_shards=tp)
+    log(f"[phase17] (d) capacity factor 8.0, layer by layer (teacher-forced "
+        f"on expert parallel) against the dense dispatch: "
+        f"{layer_shares(g['layer'])}; planted fault (model shard 1's partial"
+        f" left out): {layer_shares(g['fault_layer'])}; expert parallel "
+        f"passes the end-to-end gates {moe_gates(g)} and the layer gates "
+        f"{layer_gates(g['layer'])}, the planted fault the layer gates "
+        f"{layer_gates(g['fault_layer'])}")
+    if not (moe_gates(g) and layer_gates(g["layer"])
+            and g["drop_dense"] == 0.0 and g["drop_parallel"] == 0.0):
+        raise AssertionError(f"phase17 (d): at capacity factor 8.0 the "
+                             f"expert-parallel forward differs from the "
+                             f"dense dispatch: {g}")
+    if layer_gates(g["fault_layer"]):
+        raise AssertionError("phase17 (d): the layer gates pass the planted "
+                             "expert-parallel fault: "
+                             f"{layer_shares(g['fault_layer'])}")
+    return out
+
+
+def phase17(gen, rate):
+    """The MoE family: deepseek-moe-16b at full width and depth in bf16
+    ((a) scoring on both routes, (c) greedy serving, (d) expert parallel),
+    then in f32 at depth 2 ((b) the tight gates and exact serving), then
+    qwen3-moe-30b-a3b at depth 12 ((e))."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    out = {}
+    cfg = get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    model = lm_model(cfg, gen)
+    log(f"[phase17] {MOE_ARCH} bf16: {model_note(cfg, model)} (built in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    S = FAMILY_SEQ
+    batch = family_batch(gen, cfg, 1, S)
+    r = family_route_compare(cfg, model, batch)
+    report_family_forward("phase17", f"(a) {MOE_ARCH} bf16 full depth, B=1,"
+                          f" S={S}", cfg, r, S)
+    r["breakdown"] = breakdown_line("phase17", f"(a) {MOE_ARCH}", cfg,
+                                    model, batch)
+    out["a"] = r
+    out["c"] = family_serve("phase17", gen, cfg, model,
+                            f"(c) {MOE_ARCH} bf16 full depth",
+                            MOE_SERVE_PROMPT, torch.bfloat16, rate)
+    out["d"] = phase17_ep(gen, cfg, model)
+    del model
+    torch.cuda.empty_cache()
+    # (b) f32 at depth 2: dense layer 0 and one MoE layer, the CUDA-core
+    # SWA kernel; the phase 12 f32 gates and exact serving
+    cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    model = lm_model(cfg2, gen)
+    b = family_route_compare(cfg2, model, family_batch(gen, cfg2, 1, S))
+
+    def f32_gates(g):
+        return (g["loss_rel"] <= TOL_LOSS_F32
+                and g["max_dlogits"] <= TOL_LOGITS_F32)
+    log(f"[phase17] (b) {MOE_ARCH} f32 depth 2, B=1, S={S}: kernel route "
+        f"{b['s_kernel']:.4f} s/forward, launches {b['launches_kernel']} "
+        f"(by route {b['by_route']}), einsum {b['s_einsum']:.4f} s; lm_loss"
+        f" rel {b['loss_rel']:.3g} (limit {TOL_LOSS_F32}), max|dlogits| "
+        f"{b['max_dlogits']:.4g} (limit {TOL_LOGITS_F32}), top-1 "
+        f"{b['top1']:.5f}, assignments that differ {b['flips']}; routes "
+        f"pass {f32_gates(b)}; the planted drop clamp: lm_loss rel "
+        f"{b['fault']['loss_rel']:.3g}, max|dlogits| "
+        f"{b['fault']['max_dlogits']:.4g}, passes {f32_gates(b['fault'])}")
+    if not f32_gates(b) or b["by_route"]["cuda_core"] != 2:
+        raise AssertionError(f"phase17 (b): f32 routes differ or missed "
+                             f"the CUDA-core kernel: {b}")
+    if f32_gates(b["fault"]):
+        raise AssertionError("phase17 (b): the f32 gates pass the planted "
+                             "drop clamp")
+    out["b"] = b
+    out["c_f32"] = family_serve("phase17", gen, cfg2, model,
+                                f"(c) {MOE_ARCH} f32 depth 2",
+                                MOE_SERVE_PROMPT, torch.float32, rate,
+                                profile=False)
+    if out["c_f32"]["agree"] != 1.0:
+        raise AssertionError("phase17 (c) f32: greedy tokens differ from "
+                             "the dropless teacher-forced argmax")
+    del model
+    torch.cuda.empty_cache()
+    # (e) qwen3-moe at depth 12 (QK-norm: the einsum route)
+    cfg = dataclasses.replace(get_config(QWEN_MOE_ARCH),
+                              num_layers=QWEN_MOE_DEPTH)
+    torch.cuda.reset_peak_memory_stats()
+    model = lm_model(cfg, gen)
+    batch = family_batch(gen, cfg, 1, S)
+    logits, s_q, launches = forward_runs(cfg, model, batch)
+    logits2, aux = T.forward(cfg, model, batch)
+    same = torch.equal(logits, logits2)
+    drop = float(aux["drop_frac"]) / n_moe_layers(cfg)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[phase17] (e) {QWEN_MOE_ARCH} bf16, depth {QWEN_MOE_DEPTH} of 48 "
+        f"(cut for the script's time), {model_note(cfg, model)}: B=1, "
+        f"S={S}: {s_q:.4f} s/forward ({S / s_q:.0f} tokens/s), swa launches"
+        f" per forward {launches} (QK-norm: einsum route), drop_frac a MoE "
+        f"layer {drop:.6f}, peak memory {peak:.2f} GB; two runs bit-equal "
+        f"{same}, finite {bool(torch.isfinite(logits).all())}")
+    if not same or not bool(torch.isfinite(logits).all()) or any(launches):
+        raise AssertionError("phase17 (e): qwen3-moe forwards differ, are "
+                             "not finite, or launched the attention kernel")
+    out["e"] = dict(s_forward=s_q, drop=drop, peak_gb=peak, same=same)
+    del model, logits, logits2
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase18(gen, rate):
+    """The SSM and hybrid families: mamba2-130m at full width and depth
+    ((a): scoring at S=8192, one block's chunked SSD against the
+    sequential oracle in f32, greedy serving), then jamba-v0.1-52b at full
+    width and depth 8 ((b): scoring on both routes, greedy serving)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as TS
+    from repro_torch.models import transformer as T
+    out = {}
+    cfg = get_config(SSM_ARCH)
+    model = lm_model(cfg, gen)
+    batch = family_batch(gen, cfg, 1, SSM_SEQ)
+    logits, s_m, launches = forward_runs(cfg, model, batch)
+    finite = bool(torch.isfinite(logits).all())
+    del logits
+    log(f"[phase18] (a) {SSM_ARCH} bf16, {model_note(cfg, model)}: B=1, "
+        f"S={SSM_SEQ}: {s_m:.4f} s/forward ({SSM_SEQ / s_m:.0f} tokens/s), "
+        f"swa launches {launches}, finite {finite}")
+    if not finite or any(launches):
+        raise AssertionError("phase18 (a): non-finite logits or a launch")
+    # one block's SSD in f32 at its widths: chunked vs the sequential scan
+    dims = T.ssm_dims(cfg)
+    blk = model.layers[0].ssm
+    nh, hd, n, S = (dims["nheads"], dims["head_dim"], dims["state"],
+                    SSD_CHECK_SEQ)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+    x, Bv, Cv = rnd(1, S, nh, hd), rnd(1, S, 1, n), rnd(1, S, 1, n)
+    dt = TS.softplus(rnd(1, S, nh) * 0.5 + blk.dt_bias)
+    kw = dict(dims=dims, h0=rnd(1, nh, hd, n) * 0.1)
+    (y_c, h_c), s_c = wall(lambda: TS.ssd_chunked(x, dt, blk.A_log, Bv, Cv,
+                                                  blk.D, **kw))
+    (y_r, h_r), s_r = wall(lambda: TS.ssd_ref(x, dt, blk.A_log, Bv, Cv,
+                                              blk.D, **kw))
+    rel_y = max_err(y_c, y_r) / float(y_r.abs().max())
+    rel_h = max_err(h_c, h_r) / float(h_r.abs().max())
+    log(f"[phase18] (a) one block's ssd_chunked vs ssd_ref, f32, S={S}, "
+        f"{nh} heads x {hd}, state {n}, with h0: max|dy|/max|y| {rel_y:.3g}"
+        f", max|dh|/max|h| {rel_h:.3g} (limit {TOL_SSD_REL}: "
+        f"{max(rel_y, rel_h) / TOL_SSD_REL:.4f} of it); chunked "
+        f"{s_c * 1e3:.1f} ms, sequential {s_r * 1e3:.1f} ms")
+    if not max(rel_y, rel_h) <= TOL_SSD_REL:
+        raise AssertionError(f"phase18 (a): chunked SSD differs from the "
+                             f"sequential scan ({rel_y!r}, {rel_h!r})")
+    out["a"] = dict(s_forward=s_m, ssd_rel=max(rel_y, rel_h),
+                    serve=family_serve("phase18", gen, cfg, model,
+                                       f"(a) {SSM_ARCH} bf16",
+                                       SSM_SERVE_PROMPT, torch.bfloat16,
+                                       rate))
+    del model, x, Bv, Cv, dt, y_c, y_r, h_c, h_r
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH),
+                              num_layers=HYBRID_DEPTH)
+    t0 = time.perf_counter()
+    model = lm_model(cfg, gen)
+    log(f"[phase18] (b) {HYBRID_ARCH} bf16, depth {HYBRID_DEPTH} of 32 (one"
+        f" attention period): {model_note(cfg, model)} (built in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    r = family_route_compare(cfg, model, family_batch(gen, cfg, 1,
+                                                      FAMILY_SEQ))
+    report_family_forward("phase18", f"(b) {HYBRID_ARCH} bf16 depth "
+                          f"{HYBRID_DEPTH}, B=1, S={FAMILY_SEQ}", cfg, r,
+                          FAMILY_SEQ)
+    r["breakdown"] = breakdown_line(
+        "phase18", f"(b) {HYBRID_ARCH}", cfg, model,
+        family_batch(gen, cfg, 1, FAMILY_SEQ))
+    out["b"] = r
+    out["b_serve"] = family_serve("phase18", gen, cfg, model,
+                                  f"(b) {HYBRID_ARCH} bf16 depth "
+                                  f"{HYBRID_DEPTH}", MOE_SERVE_PROMPT,
+                                  torch.bfloat16, rate)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_readings(r17, r18) -> dict:
+    """Phases 17-18's end-to-end readings for the kernels line."""
+    def fwd(r, S):
+        return {"forward_s": r["s_kernel"], "einsum_forward_s":
+                r["s_einsum"], "tokens_per_s": S / r["s_kernel"],
+                "launches_per_forward": r["launches_kernel"][0],
+                "loss_rel": r["loss_rel"], "top1": r["top1"],
+                "max_dlogits": r["max_dlogits"], "drop_kernel":
+                r["drop_kernel"], "drop_einsum": r["drop_einsum"],
+                "assignments_differ_max": max(r["flips"]),
+                "layer": r["layer"], "breakdown": r["breakdown"],
+                "fault": {k: r["fault"][k] for k in (
+                    "loss_rel", "top1", "drop_gap", "max_dlogits",
+                    "layer")}}
+
+    def serve(r):
+        return {k: r[k] for k in ("prefill_s", "decode_ms", "step_ms",
+                                  "bound_ms", "bound_gb", "idle", "agree",
+                                  "same")}
+    return {
+        MOE_ARCH: {"forward": fwd(r17["a"], FAMILY_SEQ),
+                   "serve": serve(r17["c"]),
+                   "f32_depth2": {"loss_rel": r17["b"]["loss_rel"],
+                                  "max_dlogits": r17["b"]["max_dlogits"],
+                                  "greedy_agree": r17["c_f32"]["agree"]},
+                   "expert_parallel": {str(cf): g for cf, g in
+                                       r17["d"].items()}},
+        f"{QWEN_MOE_ARCH} depth {QWEN_MOE_DEPTH}": r17["e"],
+        SSM_ARCH: {"forward_s": r18["a"]["s_forward"],
+                   "ssd_rel": r18["a"]["ssd_rel"],
+                   "serve": serve(r18["a"]["serve"])},
+        f"{HYBRID_ARCH} depth {HYBRID_DEPTH}": {
+            "forward": fwd(r18["b"], FAMILY_SEQ),
+            "serve": serve(r18["b_serve"])}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3009,14 +3936,27 @@ def main(argv=None) -> int:
     helm5 = rows5s["helmholtz"]
     rows5 = phase5_multistep(gen, SIZE, rate)
     rows5shard = phase5_shard(gen, rate)
-    rows11, err11, by_hd11 = phase11(gen, rate)
-    zero_counts()                                  # main path: 12-13
+    rows11, err11, by_hd11, fam11 = phase11(gen, rate)
+    zero_counts()                                  # main path: 12-13, 17-18
     r12, r13, r12f, r13f = lm_phases(gen)
+    by_phase_lm = {"12-13": dict(A.launch_counts)}
+    for phase, fn in ((17, phase17), (18, phase18)):
+        before = dict(A.launch_counts)
+        t0 = time.perf_counter()
+        by_phase_lm[phase] = fn(gen, rate)
+        log(f"[main] phase {phase} took {time.perf_counter() - t0:.1f} s")
+        by_phase_lm[f"{phase} launches"] = {
+            k: A.launch_counts[k] - before[k] for k in before}
+    r17, r18 = by_phase_lm.pop(17), by_phase_lm.pop(18)
     lm_launches = dict(A.launch_counts)
-    planted = r12["fault"]["launches"] + r12f["fault"]["launches"]
-    log(f"[main] swa_attention launches on the LM path (phases 12-13) by "
-        f"route: {lm_launches} (bf16: wgmma, f32: cuda_core), {planted} of "
-        f"them by the planted-fault forwards")
+    planted = (r12["fault"]["launches"] + r12f["fault"]["launches"]
+               + r17["a"]["fault"]["launches"]
+               + r17["b"]["fault"]["launches"]
+               + r18["b"]["fault"]["launches"])
+    log(f"[main] swa_attention launches on the LM path (phases 12-13, "
+        f"17-18) by route: {lm_launches} (bf16: wgmma, f32: cuda_core), "
+        f"by phase {by_phase_lm}; {planted} of them by the planted-fault "
+        "forwards")
     for route, count in lm_launches.items():
         if count == 0:
             raise AssertionError(f"the LM path never took the {route} "
@@ -3038,7 +3978,7 @@ def main(argv=None) -> int:
                 "library_ms": None if None in libs else sum(libs) / 2,
                 "library": layers["global"]["library"], **extra,
                 "by_layer": layers,
-                "phases": {"launched": [12, 13],
+                "phases": {"launched": [12, 13, 17, 18],
                            "held_against_plain": [11]}}
     swa_wgmma = swa_entry(
         "wgmma", "src/repro_torch/kernels/csrc/swa_wgmma.cu",
@@ -3053,7 +3993,8 @@ def main(argv=None) -> int:
             "fault_bf16": r12["fault"], "prefill_s": r13["prefill_s"],
             "decode_ms": r13["decode_ms"], "decode_step_ms": r13["step_ms"],
             "decode_idle_share": r13["decode_idle"], "iters": r13["iters"],
-            "greedy_agree_bf16": r13["agree"]})
+            "greedy_agree_bf16": r13["agree"]},
+        by_shape=fam11, families=family_readings(r17, r18))
     swa_core = swa_entry(
         "cuda_core", "src/repro_torch/kernels/csrc/swa_attention.cu",
         takes="float32 at every hd, bfloat16 at hd 16/32/96",

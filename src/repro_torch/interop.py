@@ -14,9 +14,10 @@ reference's arrays convert to) and rebuild it in the port's layout:
   name and its parameters → the port's :class:`~repro_torch.kernels.ref.
   Elemental` (or :class:`~repro_torch.kernels.ref.Measure`);
 * :func:`params_from_reference` — the reference LM's ``init_params`` tree
-  (leaves as numpy) → the port's :class:`~repro_torch.models.transformer.
-  Transformer`; :func:`caches_from_reference` — its decode caches → the
-  port's per-layer cache list.
+  (leaves as numpy; attention, MLP, MoE and SSM layers alike: every leaf by
+  its dotted name) → the port's :class:`~repro_torch.models.transformer.
+  Transformer`; :func:`caches_from_reference` — its decode caches (KV and
+  SSM ``{"conv", "h"}``) → the port's per-layer cache list.
 
 Nothing here imports the JAX package: names and arrays are the interface.
 """

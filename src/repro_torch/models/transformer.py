@@ -1,21 +1,22 @@
-"""Generic layer-stack model for the dense family: interprets an
-ArchConfig's block pattern.
+"""Generic layer-stack model: interprets an ArchConfig's block pattern.
 
-PyTorch twin of :mod:`repro.models.transformer`.  The reference scans its
-repeat unit over stacked parameters; here the stack is a flat list of
-layers in the order the scan runs them — the prefix, then rep by rep each
-unit layer (layer ``len(prefix) + r·len(unit) + j`` is unit layer j of rep
-r) — and a Python loop applies them.  ``remat`` and the sharding hook are
-no-ops for a forward on one device.
+PyTorch twin of :mod:`repro.models.transformer` for the dense, MoE, SSM
+and hybrid families.  The reference scans its repeat unit over stacked
+parameters; here the stack is a flat list of layers in the order the scan
+runs them — the prefix, then rep by rep each unit layer (layer
+``len(prefix) + r·len(unit) + j`` is unit layer j of rep r) — and a Python
+loop applies them.  ``remat`` and the sharding hook are no-ops for a
+forward on one device; the expert-parallel hook is
+:func:`set_moe_parallel`.
 
 Entry points (``device=None`` is the CUDA card; the CPU only when asked):
     init_params(cfg, seed=0, device=None)            — random weights
-    forward(cfg, params, batch, device=None)         — logits for scoring
-    init_cache(cfg, batch, max_seq, device=None)     — per-layer KV caches
+    forward(cfg, params, batch, device=None)         — (logits, aux)
+    init_cache(cfg, batch, max_seq, device=None)     — per-layer KV / SSM caches
     step_with_cache / decode_step                    — serving steps
 
-Only the ``dense`` family runs here; the others raise
-:class:`NotImplementedError` naming their ROADMAP item.
+The audio and vision families raise :class:`NotImplementedError` naming
+their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -26,26 +27,36 @@ from torch import nn
 
 from ..configs.base import ArchConfig, LayerSpec
 from ..device import resolve_device, to_device
+from . import ssm as ssm_mod
 from .attention import Attention, attention, init_kv_cache
-from .layers import MLP, mlp, normal, rms_norm, zeros
+from .layers import MLP, MoE, mlp, moe, normal, rms_norm, zeros
 
 # families of the reference that later slices bring, with their ROADMAP item
 LATER_FAMILIES = {
-    "moe": "ROADMAP.md A8 (layers.moe, moe_parallel.py)",
-    "ssm": "ROADMAP.md A8 (models/ssm.py)",
-    "hybrid": "ROADMAP.md A8 (models/ssm.py and layers.moe)",
     "audio": "ROADMAP.md A8 (cross-attention and encoder)",
     "vlm": "ROADMAP.md A8 (vision stub)",
 }
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+# Optional explicit expert-parallel MoE dispatch, installed with its mesh:
+#     set_moe_parallel(functools.partial(expert_parallel_moe, mesh=mesh,
+#                                        dp_axes=("data",)))
+# None -> the single-device dispatch of layers.moe.
+_MOE_PARALLEL = None
+
+
+def set_moe_parallel(fn):
+    global _MOE_PARALLEL
+    _MOE_PARALLEL = fn
 
 
 def check_family(cfg: ArchConfig):
     if cfg.family in LATER_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family belongs to a later slice "
-            f"of the port ({LATER_FAMILIES[cfg.family]}); this slice runs "
-            "the dense family")
-    if cfg.family != "dense":
+            f"of the port ({LATER_FAMILIES[cfg.family]}); the port runs the "
+            f"{', '.join(FAMILIES)} families")
+    if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
 
 
@@ -63,28 +74,44 @@ def layer_specs(cfg: ArchConfig) -> list:
 # init
 # ---------------------------------------------------------------------------
 
+def ssm_dims(cfg: ArchConfig) -> dict:
+    return ssm_mod.ssm_dims(cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
+                            cfg.ssm_state, cfg.ssm_conv, cfg.ssm_ngroups)
+
+
 class Layer(nn.Module):
-    """``init_layer``'s parameters for an attention + dense-FFN layer:
-    ``ln1``, ``attn``, ``ln2``, ``mlp`` and, with post-norms, ``post_ln1``
-    and ``post_ln2`` (norm scales float32 zeros)."""
+    """``init_layer``'s parameters: ``ln1`` and ``attn`` (or ``ssm``),
+    then for a dense FFN ``ln2`` and ``mlp``, for a MoE FFN ``ln2`` and
+    ``moe``, for ``ffn="none"`` nothing; with post-norms ``post_ln1`` and
+    (with an FFN) ``post_ln2``.  Norm scales are float32 zeros."""
 
     def __init__(self, cfg: ArchConfig, spec: LayerSpec, *, device,
                  generator=None):
         super().__init__()
-        if spec.kind != "attn" or spec.ffn != "dense" or spec.cross:
+        if spec.cross:
             raise NotImplementedError(
                 f"layer {spec} belongs to a later slice of the port "
-                "(ROADMAP.md A8)")
+                "(ROADMAP.md A8: cross-attention and encoder)")
         dt, D = model_dtype(cfg), cfg.d_model
+        g = dict(device=device, dtype=dt, generator=generator)
         self.ln1 = zeros((D,), device=device)
-        self.attn = Attention(D, cfg.num_heads, cfg.num_kv_heads,
-                              cfg.resolved_head_dim, qk_norm=cfg.qk_norm,
-                              device=device, dtype=dt, generator=generator)
+        if spec.kind == "attn":
+            self.attn = Attention(D, cfg.num_heads, cfg.num_kv_heads,
+                                  cfg.resolved_head_dim, qk_norm=cfg.qk_norm,
+                                  **g)
+        else:
+            self.ssm = ssm_mod.SSM(D, ssm_dims(cfg), **g)
         if cfg.post_norms:
             self.post_ln1 = zeros((D,), device=device)
+        if spec.ffn == "none":
+            return
         self.ln2 = zeros((D,), device=device)
-        self.mlp = MLP(D, cfg.d_ff, cfg.mlp_gated, device=device, dtype=dt,
-                       generator=generator)
+        if spec.ffn == "dense":
+            self.mlp = MLP(D, cfg.d_ff, cfg.mlp_gated, **g)
+        else:
+            self.moe = MoE(D, cfg.n_experts, cfg.expert_d_ff,
+                           cfg.n_shared_experts, cfg.shared_d_ff,
+                           cfg.mlp_gated, **g)
         if cfg.post_norms:
             self.post_ln2 = zeros((D,), device=device)
 
@@ -131,43 +158,80 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
 
 def apply_layer(cfg: ArchConfig, spec: LayerSpec, p: Layer, x, *,
                 positions, causal=True, cache=None, cache_pos=None):
-    """One block: attention + dense FFN, pre-norm residual (post-norms when
-    the config has them).  Returns (x, cache)."""
+    """One block: attention or SSM, then the FFN (dense, MoE or none),
+    pre-norm residual (post-norms when the config has them).  Under a
+    cache the MoE dispatches dropless, as the reference's serving path.
+    Returns (x, cache, aux); aux is empty without a MoE."""
+    aux = {}
     h = rms_norm(x, p.ln1, cfg.norm_eps)
-    out, new_cache = attention(
-        p.attn, h, positions=positions, num_heads=cfg.num_heads,
-        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
-        rope_theta=cfg.rope_theta if cfg.use_rope else 0.0,
-        causal=causal, window=spec.window, attn_softcap=cfg.attn_softcap,
-        qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps, kv_cache=cache,
-        cache_pos=cache_pos)
+    if spec.kind == "attn":
+        out, new_cache = attention(
+            p.attn, h, positions=positions, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+            rope_theta=cfg.rope_theta if cfg.use_rope else 0.0,
+            causal=causal, window=spec.window,
+            attn_softcap=cfg.attn_softcap, qk_norm=cfg.qk_norm,
+            norm_eps=cfg.norm_eps, kv_cache=cache, cache_pos=cache_pos)
+    else:
+        out, new_cache = ssm_mod.mamba2_block(
+            p.ssm, h, dims=ssm_dims(cfg), norm_eps=cfg.norm_eps,
+            ssm_cache=cache)
     if cfg.post_norms:
         out = rms_norm(out, p.post_ln1, cfg.norm_eps)
     x = x + out
+    if spec.ffn == "none":
+        return x, new_cache, aux
     h = rms_norm(x, p.ln2, cfg.norm_eps)
-    out = mlp(p.mlp, h, cfg.act)
+    if spec.ffn == "dense":
+        out = mlp(p.mlp, h, cfg.act)
+    elif _MOE_PARALLEL is not None and not cfg.moe_dropless:
+        out, aux = _MOE_PARALLEL(p.moe, h, top_k=cfg.top_k, act=cfg.act,
+                                 capacity_factor=cfg.moe_capacity_factor)
+    else:
+        out, aux = moe(p.moe, h, top_k=cfg.top_k, act=cfg.act,
+                       capacity_factor=cfg.moe_capacity_factor,
+                       dropless=cfg.moe_dropless or cache is not None)
     if cfg.post_norms:
         out = rms_norm(out, p.post_ln2, cfg.norm_eps)
-    return x + out, new_cache
+    return x + out, new_cache, aux
 
 
 def zero_aux(device) -> dict:
-    """The MoE aux terms, zero for the dense family."""
+    """The MoE aux terms at zero (their sum over a stack without MoE)."""
     z = torch.zeros((), dtype=torch.float32, device=device)
     return {"lb_loss": z, "router_z": z.clone(), "drop_frac": z.clone()}
+
+
+def _acc_aux(acc: dict, aux: dict) -> dict:
+    return {k: acc[k] + aux[k] for k in acc} if aux else acc
 
 
 def run_stack(cfg: ArchConfig, params: Transformer, x, *, positions,
               causal=True, caches=None, cache_pos=None):
     """Apply every layer in run order.  ``caches`` is a per-layer list (or
-    None).  Returns (x, caches, aux)."""
+    None).  Returns (x, caches, aux): aux summed as the reference sums it,
+    the prefix's layers in turn, then each rep's unit layers from zero,
+    then the reps' sums."""
+    prefix, unit, _ = cfg.block_pattern()
+    n_pre = len(prefix)
     new_caches = []
+    aux_sum = zero_aux(x.device)
+    reps = []
     for i, (spec, p) in enumerate(zip(params.specs, params.layers)):
         c = caches[i] if caches is not None else None
-        x, nc = apply_layer(cfg, spec, p, x, positions=positions,
-                            causal=causal, cache=c, cache_pos=cache_pos)
+        x, nc, aux = apply_layer(cfg, spec, p, x, positions=positions,
+                                 causal=causal, cache=c, cache_pos=cache_pos)
         new_caches.append(nc)
-    return x, new_caches, zero_aux(x.device)
+        if i < n_pre:
+            aux_sum = _acc_aux(aux_sum, aux)
+            continue
+        if (i - n_pre) % len(unit) == 0:
+            reps.append(zero_aux(x.device))
+        reps[-1] = _acc_aux(reps[-1], aux)
+    if reps:
+        aux_sum = {k: aux_sum[k] + torch.stack([r[k] for r in reps]).sum()
+                   for k in aux_sum}
+    return x, new_caches, aux_sum
 
 
 # ---------------------------------------------------------------------------
@@ -228,15 +292,18 @@ def forward(cfg: ArchConfig, params: Transformer, batch: dict, *,
 
 def init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
                      max_seq: int, dtype=torch.bfloat16, *, device):
-    return init_kv_cache(batch, max_seq, cfg.num_kv_heads,
-                         cfg.resolved_head_dim, dtype, window=spec.window,
-                         device=device)
+    if spec.kind == "attn":
+        return init_kv_cache(batch, max_seq, cfg.num_kv_heads,
+                             cfg.resolved_head_dim, dtype,
+                             window=spec.window, device=device)
+    return ssm_mod.init_ssm_cache(batch, ssm_dims(cfg), dtype, device=device)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, *, device=None) -> list:
-    """Decode caches for the whole stack, one dict per layer in run order
-    (ring buffers for sliding-window layers whose window < max_seq)."""
+    """Decode caches for the whole stack, one dict per layer in run order:
+    KV caches for attention layers (ring buffers where the window <
+    max_seq), ``{"conv", "h"}`` for SSM layers."""
     check_family(cfg)
     dev = resolve_device(device)
     return [init_layer_cache(cfg, s, batch, max_seq, dtype, device=dev)

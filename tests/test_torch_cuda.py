@@ -760,3 +760,138 @@ def test_cuda_greedy_equals_teacher_forced_argmax(cuda_f32):
     for b in range(2):
         L = int(lengths[b])
         assert torch.equal(out[b, :L].long(), exp[b, :L])
+
+
+# ---------------------------------------------------------------------------
+# the MoE, SSM and hybrid families
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KH", [(16, 16), (32, 8)],
+                         ids=["deepseek-moe-16b", "jamba-v0.1-52b"])
+def test_cuda_wgmma_at_the_family_head_layouts(cuda_f32, H, KH):
+    """The wgmma kernel at deepseek's (16/16, G = 1) and jamba's (32/8)
+    head layouts, hd 128, causal global, no softcap."""
+    q, k, v = (torch.as_tensor(field(80 + i, (n, 512, 128)), device=cuda_f32)
+               .to(torch.bfloat16) for i, n in enumerate((H, KH, KH)))
+    before = dict(TS.launch_counts)
+    got = TS.swa_attention(q, k, v, window=0, causal=True)
+    torch.cuda.synchronize()
+    assert TS.launch_counts["wgmma"] == before["wgmma"] + 1
+    G = H // KH
+    for g in range(KH):
+        want = TS.swa_attention_plain(q[g * G:(g + 1) * G], k[g:g + 1],
+                                      v[g:g + 1], window=0, causal=True)
+        torch.testing.assert_close(got[g * G:(g + 1) * G].float(),
+                                   want.float(), **SWA_BF16_LIMIT)
+
+
+def family_model(arch, device, dtype="bfloat16", seed=0, **kw):
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as TT
+    cfg = dataclasses.replace(get_reduced(arch), dtype=dtype, **kw)
+    return cfg, TT.init_params(cfg, seed=seed, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "jamba-v0.1-52b"])
+def test_cuda_moe_forward_twice_is_bit_equal(cuda_f32, arch):
+    """The combine has no atomics: two bf16 forwards, with capacity drops,
+    give the same logits and aux bit for bit."""
+    from repro_torch.models import transformer as TT
+    cfg, model = family_model(arch, cuda_f32, moe_dropless=False,
+                              moe_capacity_factor=0.75)
+    tokens = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 256)),
+        device=cuda_f32)
+    a, aux_a = TT.forward(cfg, model, {"tokens": tokens})
+    b, aux_b = TT.forward(cfg, model, {"tokens": tokens})
+    assert torch.equal(a, b)
+    assert all(torch.equal(aux_a[k], aux_b[k]) for k in aux_a)
+    assert float(aux_a["drop_frac"]) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,cf", [("float32", 0.5), ("float32", 1.25),
+                                      ("bfloat16", 1.25)])
+def test_cuda_moe_matches_the_cpu(cuda_f32, dtype, cf):
+    """``moe`` on the card against the same function on the CPU: float32
+    within 1e-5 (TF32 off), bfloat16 within 2e-2 (the products' roundings
+    differ); drop_frac equal."""
+    from repro_torch.models import layers as TL
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(0)
+    m = TL.MoE(64, 8, 96, 1, 128, True, device="cpu", dtype=dt, generator=g)
+    x = (torch.randn((3, 40, 64), generator=g) * 0.5).to(dt)
+    want, waux = TL.moe(m, x, top_k=2, capacity_factor=cf)
+    got, aux = TL.moe(m.to(cuda_f32), x.to(cuda_f32), top_k=2,
+                      capacity_factor=cf)
+    tol = 1e-5 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=tol,
+                               rtol=tol)
+    assert float(aux["drop_frac"]) == float(waux["drop_frac"])
+    torch.testing.assert_close(aux["lb_loss"].cpu(), waux["lb_loss"],
+                               rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_expert_parallel_on_a_mesh_of_the_card(cuda_f32):
+    """On ["cuda:0"] * 8 as (2, 4) at capacity factor 8.0 (no drops) the
+    expert-parallel dispatch equals the dense one (float32)."""
+    from repro_torch.models import layers as TL
+    from repro_torch.models.moe_parallel import expert_parallel_moe
+    from repro_torch.sharding import make_mesh
+    g = torch.Generator().manual_seed(1)
+    m = TL.MoE(64, 8, 96, 1, 128, True, device="cpu", dtype=torch.float32,
+               generator=g).to(cuda_f32)
+    x = (torch.randn((4, 32, 64), generator=g) * 0.5).to(cuda_f32)
+    mesh = make_mesh((2, 4), ("data", "model"), devices=["cuda:0"] * 8)
+    y, aux = expert_parallel_moe(m, x, top_k=2, act="silu",
+                                 capacity_factor=8.0, mesh=mesh,
+                                 dp_axes=("data",))
+    want, _ = TL.moe(m, x, top_k=2, dropless=True)
+    torch.testing.assert_close(y, want, atol=1e-5, rtol=0)
+    assert float(aux["drop_frac"]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [128, 300])
+def test_cuda_ssd_chunked_matches_ssd_ref(cuda_f32, S):
+    from repro_torch.models import ssm as TSM
+    g = torch.Generator().manual_seed(2)
+    nh, hd, n = 8, 16, 32
+    dims = dict(state=n, ngroups=1, nheads=nh, head_dim=hd)
+    x, Bv, Cv = (torch.randn(shape, generator=g).to(cuda_f32) for shape in
+                 ((2, S, nh, hd), (2, S, 1, n), (2, S, 1, n)))
+    dt = (torch.rand((2, S, nh), generator=g) * 0.2 + 0.01).to(cuda_f32)
+    A = torch.log(torch.linspace(1.0, 16.0, nh)).to(cuda_f32)
+    D = torch.ones(nh, device=cuda_f32)
+    h0 = torch.randn((2, nh, hd, n), generator=g).to(cuda_f32) * 0.1
+    y, h = TSM.ssd_chunked(x, dt, A, Bv, Cv, D, dims=dims, h0=h0)
+    yr, hr = TSM.ssd_ref(x, dt, A, Bv, Cv, D, dims=dims, h0=h0)
+    torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h, hr, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-130m",
+                                  "jamba-v0.1-52b"])
+def test_cuda_family_greedy_equals_dropless_teacher_forced(cuda_f32, arch):
+    """float32 serving on the card: greedy tokens are the argmax of the
+    dropless forward over prompt + tokens (128: the flash route)."""
+    from repro_torch.models import transformer as TT
+    from repro_torch.serve import GenerateConfig, generate
+    cfg, model = family_model(arch, cuda_f32, dtype="float32", seed=1)
+    prompt = np.random.default_rng(1).integers(2, cfg.vocab_size, (2, 120))
+    out, lengths, _ = generate(cfg, model, prompt,
+                               GenerateConfig(max_new_tokens=8),
+                               cache_dtype=torch.float32)
+    full = torch.cat([torch.as_tensor(prompt, device=cuda_f32),
+                      out.long()], dim=1)
+    logits, _ = TT.forward(cfg, model, {"tokens": full})
+    exp = logits[:, 119:-1].argmax(dim=-1)
+    for b in range(2):
+        L = int(lengths[b])
+        assert torch.equal(out[b, :L].long(), exp[b, :L])

@@ -39,7 +39,7 @@ def test_scan_covers_the_port():
             "attention.py", "layers.py", "transformer.py", "objective.py",
             "engine.py", "base.py", "gemma2_9b.py", "streaming.py",
             "recovery.py", "faults.py", "video_restoration.py",
-            "specs.py", "halo.py"} <= names
+            "specs.py", "halo.py", "moe_parallel.py", "ssm.py"} <= names
 
 
 @pytest.fixture
@@ -101,6 +101,46 @@ def test_lm_entry_points_raise_without_a_card(cpu_only_host):
         generate(cfg, model, tokens, GenerateConfig(max_new_tokens=2))
     logits, _ = T.forward(cfg, model, {"tokens": tokens}, device="cpu")
     assert logits.device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "jamba-v0.1-52b"])
+def test_moe_entry_points_raise_without_a_card(arch, cpu_only_host):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import GenerateConfig, generate
+    cfg = get_reduced(arch)
+    tokens = np.zeros((1, 8), np.int64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.init_params(cfg)
+    model = T.init_params(cfg, device="cpu")        # asked for: fine
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        T.forward(cfg, model, {"tokens": tokens})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate(cfg, model, tokens, GenerateConfig(max_new_tokens=2))
+    logits, aux = T.forward(cfg, model, {"tokens": tokens}, device="cpu")
+    assert logits.device.type == "cpu" and float(aux["router_z"]) > 0
+    out, _, _ = generate(cfg, model, tokens, GenerateConfig(max_new_tokens=2),
+                         device="cpu")
+    assert out.shape == (1, 2)
+
+
+def test_moe_kernel_route_off_the_cpu_never_runs_the_plain_version(
+        monkeypatch):
+    """A MoE config with the kernel route asked for, on tensors of a
+    device without a kernel, is refused at its first attention layer, as
+    on the dense path: the wrapper launches or raises."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels import swa_attention as TS
+    from repro_torch.models import attention as TA
+    from repro_torch.models import transformer as T
+    monkeypatch.setattr(TS, "swa_attention_plain", lambda *a, **k: (
+        pytest.fail("plain version called for a non-CPU tensor")))
+    monkeypatch.setattr(TA, "USE_FLASH_SWA", True)
+    cfg = get_reduced("deepseek-moe-16b")
+    model = T.Transformer(cfg, device="meta")
+    tokens = torch.zeros((1, 128), dtype=torch.long, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        T.forward(cfg, model, {"tokens": tokens}, device="meta")
 
 
 def test_cuda_backend_on_cpu_tensors_raises():

@@ -314,9 +314,7 @@ def test_reference_layers_puts_the_prefix_first():
     assert [float(l["w"][0]) for l in layers] == [-1.0] + list(range(reps))
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "mamba2-130m",
-                                  "jamba-v0.1-52b", "whisper-base",
-                                  "phi-3-vision-4.2b"])
+@pytest.mark.parametrize("arch", ["whisper-base", "phi-3-vision-4.2b"])
 def test_other_families_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
         TT.init_params(port_reduced(arch), device="cpu")
