@@ -2,8 +2,8 @@
 
 The port's own copy of the JAX package's ``configs`` (pure dataclasses,
 copied as they are), so the port imports nothing of that package.  The
-port's model stack takes the ``dense`` family; the others raise in
-:func:`repro_torch.models.transformer.check_family`.
+port's model stack takes every family of them
+(:data:`repro_torch.models.transformer.FAMILIES`).
 """
 from . import (gemma2_9b, phi3_medium_14b, yi_9b, qwen3_1_7b,
                deepseek_moe_16b, qwen3_moe_30b_a3b, whisper_base,

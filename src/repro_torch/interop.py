@@ -14,10 +14,13 @@ reference's arrays convert to) and rebuild it in the port's layout:
   name and its parameters → the port's :class:`~repro_torch.kernels.ref.
   Elemental` (or :class:`~repro_torch.kernels.ref.Measure`);
 * :func:`params_from_reference` — the reference LM's ``init_params`` tree
-  (leaves as numpy; attention, MLP, MoE and SSM layers alike: every leaf by
-  its dotted name) → the port's :class:`~repro_torch.models.transformer.
+  (leaves as numpy; attention, cross-attention, MLP, MoE and SSM layers
+  alike, the encoder's stack, ``pos_embed`` and ``vision_proj``: every leaf
+  by its dotted name) → the port's :class:`~repro_torch.models.transformer.
   Transformer`; :func:`caches_from_reference` — its decode caches (KV and
-  SSM ``{"conv", "h"}``) → the port's per-layer cache list.
+  SSM ``{"conv", "h"}``) → the port's per-layer cache list;
+  :func:`cross_caches_from_reference` — ``prefill_cross_caches``' tree →
+  the port's per-layer cross caches.
 
 Nothing here imports the JAX package: names and arrays are the interface.
 """
@@ -121,12 +124,16 @@ def tensor_from_numpy(arr, device) -> torch.Tensor:
     return torch.tensor(arr, device=device)
 
 
-def reference_layers(cfg: ArchConfig, tree: dict) -> list:
+def reference_layers(cfg: ArchConfig, tree: dict, pattern=None) -> list:
     """The per-layer subtrees of a reference ``{"prefix": [...], "unit":
     [...]}`` tree, in the order the stack runs them: ``prefix[i]`` is layer
     i, and ``unit[j]`` sliced at rep r is layer ``len(prefix) + r·len(unit)
-    + j``."""
-    prefix, unit, reps = cfg.block_pattern()
+    + j``.  ``pattern`` defaults to the decoder stack's (``decoder_pattern()``
+    for an encoder-decoder, else ``block_pattern()``); an encoder's
+    ``{"unit": [...]}`` takes ``encoder_pattern(cfg)``."""
+    from .models.transformer import stack_pattern
+    prefix, unit, reps = pattern or stack_pattern(cfg)
+    tree = {"prefix": [], **tree}
     if len(tree["prefix"]) != len(prefix) or len(tree["unit"]) != len(unit):
         raise ValueError(
             f"tree holds {len(tree['prefix'])} prefix and {len(tree['unit'])}"
@@ -154,12 +161,17 @@ def _count_leaves(tree) -> int:
     return 1
 
 
+# submodules loaded layer by layer, not by name
+_STACKS = ("layers", "encoder")
+
+
 def _load(module: torch.nn.Module, tree: dict, where: str):
     """Copy every parameter of ``module`` from the same-named leaf of
-    ``tree``; shapes must agree and no leaf may be left over."""
+    ``tree``, but those under the ``_STACKS`` submodules; shapes must
+    agree."""
     names = dict(module.named_parameters(recurse=True))
     for name, param in names.items():
-        if "." in name and name.split(".")[0] == "layers":
+        if "." in name and name.split(".")[0] in _STACKS:
             continue
         src = tensor_from_numpy(_leaf(tree, name), param.device)
         if tuple(src.shape) != tuple(param.shape):
@@ -168,27 +180,53 @@ def _load(module: torch.nn.Module, tree: dict, where: str):
         param.data.copy_(src)
 
 
+def _load_layers(layers: torch.nn.ModuleList, trees: list, where: str):
+    """Load each port layer from its reference subtree, checking that the
+    two hold the same number of leaves."""
+    if len(trees) != len(layers):
+        raise ValueError(f"{where}: the reference holds {len(trees)} layers,"
+                         f" the port {len(layers)}")
+    for i, (layer, tree) in enumerate(zip(layers, trees)):
+        if _count_leaves(tree) != len(list(layer.parameters())):
+            raise ValueError(f"{where}{i}: the reference holds "
+                             f"{_count_leaves(tree)} leaves, the port "
+                             f"{len(list(layer.parameters()))}")
+        _load(layer, tree, f"{where}{i}.")
+
+
 def params_from_reference(cfg: ArchConfig, params_np: dict, *,
                           device=None):
-    """The reference's ``init_params(cfg, key)`` tree, leaves converted to
-    numpy, as the port's model on ``device`` (None: the CUDA card)."""
-    from .models.transformer import Transformer
+    """The reference's ``init_params(cfg, key, max_position)`` tree, leaves
+    converted to numpy, as the port's model on ``device`` (None: the CUDA
+    card); the position table keeps the tree's row count."""
+    from .models.transformer import Transformer, encoder_pattern
     dev = resolve_device(device)
-    model = Transformer(cfg, device=dev)          # storage filled below
-    top = {k: v for k, v in params_np.items() if k not in ("prefix", "unit")}
-    _load(model, top, "")
-    layers = reference_layers(cfg, params_np)
+    rows = np.shape(params_np["pos_embed"])[0] if "pos_embed" in params_np \
+        else 0
+    model = Transformer(cfg, device=dev, max_position=rows)  # filled below
+    top = {k: v for k, v in params_np.items()
+           if k not in ("prefix", "unit", "encoder")}
     n_top = sum(1 for n, _ in model.named_parameters()
-                if not n.startswith("layers."))
+                if n.split(".")[0] not in _STACKS)
     if n_top != _count_leaves(top):
         raise ValueError(f"reference top-level leaves {sorted(top)} do not "
                          f"match the port's parameters")
-    for i, (layer, tree) in enumerate(zip(model.layers, layers)):
-        if _count_leaves(tree) != len(list(layer.parameters())):
-            raise ValueError(f"layer {i}: the reference holds "
-                             f"{_count_leaves(tree)} leaves, the port "
-                             f"{len(list(layer.parameters()))}")
-        _load(layer, tree, f"layers.{i}.")
+    _load(model, top, "")
+    _load_layers(model.layers, reference_layers(cfg, params_np), "layers.")
+    if cfg.is_encoder_decoder != ("encoder" in params_np):
+        raise ValueError(f"{cfg.name}: the reference tree "
+                         f"{'lacks' if cfg.is_encoder_decoder else 'has'} "
+                         "an encoder")
+    if cfg.is_encoder_decoder:
+        enc = params_np["encoder"]
+        if sorted(enc) != ["final_norm", "unit"]:
+            raise ValueError(f"reference encoder leaves {sorted(enc)}; want "
+                             "final_norm and unit")
+        _load(model.encoder, {"final_norm": enc["final_norm"]}, "encoder.")
+        _load_layers(model.encoder.layers,
+                     reference_layers(cfg, {"unit": enc["unit"]},
+                                      encoder_pattern(cfg)),
+                     "encoder.layers.")
     return model
 
 
@@ -199,3 +237,12 @@ def caches_from_reference(cfg: ArchConfig, caches_np: dict, *,
     dev = resolve_device(device)
     return [{k: tensor_from_numpy(v, dev) for k, v in c.items()}
             for c in reference_layers(cfg, caches_np)]
+
+
+def cross_caches_from_reference(cfg: ArchConfig, cross_np: dict, *,
+                                device=None) -> list:
+    """The reference's ``prefill_cross_caches`` tree (leaves as numpy) as
+    the port's per-layer list of read-only ``{"k", "v"}``."""
+    dev = resolve_device(device)
+    return [{k: tensor_from_numpy(v, dev) for k, v in c.items()}
+            for c in reference_layers(cfg, cross_np)]

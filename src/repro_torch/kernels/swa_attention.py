@@ -17,7 +17,9 @@ chosen by dtype and head_dim alone (:func:`_route`):
   :func:`last_launch` reports what its last launch chose.
 
 * :func:`swa_attention` — the wrapper: on CUDA tensors it launches the
-  route's kernel or raises; on CPU tensors it runs the plain version.
+  route's kernel or raises; on CPU tensors it runs the plain version.  It
+  has no backward (neither has the reference's kernel), so it refuses
+  inputs that require grad while grad is enabled, on every device.
 * :func:`swa_attention_plain` — the same function in torch ops: dense
   masked softmax in float32 with the kernel's scaling order (q scaled
   before the dot), softcap, ``NEG_INF`` and GQA by index.  For the tests
@@ -130,7 +132,17 @@ def swa_attention(q, k, v, *, window: int = 0, causal: bool = True,
     :data:`HEAD_DIMS` and S a multiple of min(128, S).  On a CUDA tensor
     this launches the kernel of :func:`_route` (contiguous, 16-byte aligned
     inputs: both kernels copy rows by 16-byte pieces, TMA or ``cp.async``)
-    or raises; on a CPU tensor it runs :func:`swa_attention_plain`."""
+    or raises; on a CPU tensor it runs :func:`swa_attention_plain`.
+
+    Raises :class:`RuntimeError` when grad is enabled and q, k or v
+    requires grad: the kernel has no backward, and its output would carry
+    no gradient to them."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "swa_attention has no backward: its output would carry no "
+            "gradient to q, k or v.  Differentiate through the einsum route"
+            " (repro_torch.models.attention.set_flash_swa(False)), or call "
+            "it under torch.no_grad()")
     _check(q, k, v, window)
     if q.device.type == "cpu":
         return swa_attention_plain(q, k, v, window=window, causal=causal,

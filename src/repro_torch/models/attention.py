@@ -1,15 +1,15 @@
 """Attention: GQA with RoPE, sliding-window (sequence-stencil) masking,
-soft-capping, qk-norm and KV-cache decode.
+soft-capping, qk-norm, cross-attention and KV-cache decode.
 
-PyTorch twin of :mod:`repro.models.attention` for self-attention.  The
-grouped-query einsum keeps K/V unrepeated ((B, S, KH, hd) throughout).
-Train/prefill self-attention may take the flash route, the hand-written
-kernel of :mod:`repro_torch.kernels.swa_attention`, under the reference's
-own condition.  Caches are written in place (the reference returns new
-arrays); each call returns the cache dict it wrote.
+PyTorch twin of :mod:`repro.models.attention`.  The grouped-query einsum
+keeps K/V unrepeated ((B, S, KH, hd) throughout).  Train/prefill
+self-attention may take the flash route, the hand-written kernel of
+:mod:`repro_torch.kernels.swa_attention`, under the reference's own
+condition; cross-attention never does.  Caches are written in place (the
+reference returns new arrays); each call returns the cache dict it wrote.
 
-Not in this slice: cross-attention, the int8 cache, the ragged ``kv_len``
-mask and per-sequence ``cache_pos`` (ROADMAP.md A8/A9).
+Not in this slice: the int8 cache, the ragged ``kv_len`` mask and
+per-sequence ``cache_pos`` (ROADMAP.md A9).
 """
 from __future__ import annotations
 
@@ -90,14 +90,13 @@ def attention(params: Attention, x, *, positions, num_heads, num_kv_heads,
               kv_cache: Optional[dict] = None, cache_pos=None, kv_len=None):
     """Returns (out, kv_cache or None), as the reference's ``attention``.
 
-    Train/prefill: ``kv_cache=None``.  Decode: ``kv_cache={'k','v'}``
-    (B, S_cache, KH, hd), written at ``cache_pos`` (an int, or a (1, 1) or
-    0-d tensor: one position for the whole batch), or a ring buffer
-    ``{'k','v','pos'}`` of W slots for a sliding-window layer."""
-    if x_kv is not None:
-        raise NotImplementedError(
-            "cross-attention belongs to a later slice of the port "
-            "(ROADMAP.md A8: cross-attention and encoder)")
+    Train/prefill: ``kv_cache=None``; keys and values from ``x``, or from
+    ``x_kv`` for cross-attention (no RoPE, no mask there).  Decode:
+    ``kv_cache={'k','v'}`` (B, S_cache, KH, hd), written at ``cache_pos``
+    (an int, or a (1, 1) or 0-d tensor: one position for the whole batch),
+    or a ring buffer ``{'k','v','pos'}`` of W slots for a sliding-window
+    layer.  A cross cache (precomputed from the encoder output) is
+    read-only."""
     if kv_len is not None:
         raise NotImplementedError(
             "the ragged kv_len mask belongs to a later slice of the port "
@@ -110,38 +109,46 @@ def attention(params: Attention, x, *, positions, num_heads, num_kv_heads,
     q = torch.einsum("bsd,dhk->bshk", x, params.wq)
     if qk_norm:
         q = rms_norm(q, params.q_norm, norm_eps)
-    k = torch.einsum("bsd,dhk->bshk", x, params.wk)
-    v = torch.einsum("bsd,dhk->bshk", x, params.wv)
-    if qk_norm:
-        k = rms_norm(k, params.k_norm, norm_eps)
-    if rope_theta:
-        # keys take the same absolute positions as the queries; cache_pos
-        # only sets the write offset (prefill writes S keys)
-        k = apply_rope(k, positions, rope_theta)
+    is_cross = x_kv is not None
 
     new_cache = None
-    k_pos = positions
-    if kv_cache is not None:
-        pos0 = _uniform_pos(cache_pos)
-        if "pos" in kv_cache:
-            # ring buffer (sliding-window layers): slot = position mod W
-            new_cache = _ring_write(kv_cache, k, v, positions)
-            if S == 1:
-                k, v, k_pos = kv_cache["k"], kv_cache["v"], kv_cache["pos"]
-            # a prefill chunk attends its OWN keys (the ring keeps only
-            # the last W); single-chunk prefill from position 0 is the
-            # engine's contract
-        else:
-            k = _scatter_cache(kv_cache["k"], k, pos0)
-            v = _scatter_cache(kv_cache["v"], v, pos0)
-            new_cache = kv_cache
-            k_pos = torch.arange(k.shape[1], device=x.device)[None, :]
+    if is_cross and kv_cache is not None:
+        k, v = kv_cache["k"], kv_cache["v"]          # precomputed, read-only
+        new_cache = kv_cache
+    else:
+        src = x_kv if is_cross else x
+        k = torch.einsum("bsd,dhk->bshk", src, params.wk)
+        v = torch.einsum("bsd,dhk->bshk", src, params.wv)
+        if qk_norm:
+            k = rms_norm(k, params.k_norm, norm_eps)
+    if is_cross:
+        k_pos = torch.arange(k.shape[1], device=x.device)[None, :]
+    else:
+        if rope_theta:
+            # keys take the same absolute positions as the queries;
+            # cache_pos only sets the write offset (prefill writes S keys)
+            k = apply_rope(k, positions, rope_theta)
+            q = apply_rope(q, positions, rope_theta)
+        k_pos = positions
+        if kv_cache is not None:
+            pos0 = _uniform_pos(cache_pos)
+            if "pos" in kv_cache:
+                # ring buffer (sliding-window layers): slot = position mod W
+                new_cache = _ring_write(kv_cache, k, v, positions)
+                if S == 1:
+                    k, v, k_pos = (kv_cache["k"], kv_cache["v"],
+                                   kv_cache["pos"])
+                # a prefill chunk attends its OWN keys (the ring keeps
+                # only the last W); single-chunk prefill from position 0
+                # is the engine's contract
+            else:
+                k = _scatter_cache(kv_cache["k"], k, pos0)
+                v = _scatter_cache(kv_cache["v"], v, pos0)
+                new_cache = kv_cache
+                k_pos = torch.arange(k.shape[1], device=x.device)[None, :]
 
-    if rope_theta:
-        q = apply_rope(q, positions, rope_theta)
-
-    if (_flash_enabled(x.device) and kv_cache is None and causal
-            and S % 128 == 0 and not qk_norm and kv_len is None):
+    if (_flash_enabled(x.device) and kv_cache is None and not is_cross
+            and causal and S % 128 == 0 and not qk_norm and kv_len is None):
         # flash route: (B,S,H,hd) -> (B·H,S,hd); kv stay per-group (at
         # B=1 the reshape is a strided view, so copy to the kernel's layout)
         from ..kernels.swa_attention import swa_attention
@@ -159,7 +166,8 @@ def attention(params: Attention, x, *, positions, num_heads, num_kv_heads,
     scores = scores * float(1.0 / math.sqrt(head_dim))
     if attn_softcap:
         scores = softcap(scores, attn_softcap)
-    bias = _mask_bias(positions, k_pos, causal=causal, window=window)
+    bias = _mask_bias(positions, k_pos, causal=causal and not is_cross,
+                      window=0 if is_cross else window)
     scores = scores + bias[:, None, None]            # (B,1,1,Q,S)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     del scores

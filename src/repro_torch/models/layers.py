@@ -1,10 +1,11 @@
-"""Shared model layers: norms, RoPE, the dense MLP, the token-choice MoE.
+"""Shared model layers: norms, RoPE, sinusoidal positions, the dense MLP,
+the token-choice MoE.
 
 PyTorch twin of :mod:`repro.models.layers`.  Parameters live in
 :class:`torch.nn.Module`\\ s under the reference's names and shapes; the
 functions take tensors and keep the reference's arithmetic: norms and RoPE
 in float32, cast back to the input dtype; the MoE router in float32 end to
-end.  ``layer_norm`` comes with a later slice (ROADMAP.md A8).
+end.
 """
 from __future__ import annotations
 
@@ -24,6 +25,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return ((1.0 + scale.float()) * out).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5):
+    """``(x - mean) / sqrt(var + eps) · scale + bias`` (population
+    variance), in float32, cast to ``x``'s dtype.  No model calls it, as in
+    the reference."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale + bias).to(x.dtype)
 
 
 def softcap(x: torch.Tensor, cap: float):
@@ -65,6 +78,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, dim: int) -> np.ndarray:
+    """Whisper-style fixed sinusoidal embeddings (seq, dim): sines then
+    cosines, computed in float64 numpy and returned as float32."""
+    pos = np.arange(seq)[:, None]
+    inv = 1.0 / (10000 ** (np.arange(0, dim, 2) / dim))
+    ang = pos * inv[None, :]
+    return np.concatenate([np.sin(ang), np.cos(ang)],
+                          axis=-1).astype(np.float32)
 
 
 # -- init helpers -----------------------------------------------------------

@@ -1,25 +1,32 @@
 """Generic layer-stack model: interprets an ArchConfig's block pattern.
 
-PyTorch twin of :mod:`repro.models.transformer` for the dense, MoE, SSM
-and hybrid families.  The reference scans its repeat unit over stacked
-parameters; here the stack is a flat list of layers in the order the scan
-runs them — the prefix, then rep by rep each unit layer (layer
-``len(prefix) + r·len(unit) + j`` is unit layer j of rep r) — and a Python
-loop applies them.  ``remat`` and the sharding hook are no-ops for a
+PyTorch twin of :mod:`repro.models.transformer` for every family of the
+reference: dense, MoE, SSM, hybrid, the encoder-decoder (audio: whisper)
+and the vision stub (vlm: phi-3-vision).  The reference scans its repeat
+unit over stacked parameters; here the stack is a flat list of layers in
+the order the scan runs them — the prefix, then rep by rep each unit layer
+(layer ``len(prefix) + r·len(unit) + j`` is unit layer j of rep r) — and
+a Python loop applies them.  An encoder-decoder's decoder stack follows
+``decoder_pattern()`` and its encoder is a stack of its own
+(:class:`Encoder`).  ``remat`` and the sharding hook are no-ops for a
 forward on one device; the expert-parallel hook is
 :func:`set_moe_parallel`.
 
 Entry points (``device=None`` is the CUDA card; the CPU only when asked):
-    init_params(cfg, seed=0, device=None)            — random weights
+    init_params(cfg, seed=0, max_position=0, device=None) — random weights
     forward(cfg, params, batch, device=None)         — (logits, aux)
+    encode(cfg, params, frames, device=None)         — the encoder's output
     init_cache(cfg, batch, max_seq, device=None)     — per-layer KV / SSM caches
+    prefill_cross_caches(cfg, params, enc_out)       — read-only cross K/V
     step_with_cache / decode_step                    — serving steps
 
-The audio and vision families raise :class:`NotImplementedError` naming
-their ROADMAP item.
+Frames, the encoder's output and the cross caches must be in the model
+dtype (the reference fails on a mismatch too, inside its scan); patch
+embeddings are cast to it, as the reference casts them.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -29,14 +36,12 @@ from ..configs.base import ArchConfig, LayerSpec
 from ..device import resolve_device, to_device
 from . import ssm as ssm_mod
 from .attention import Attention, attention, init_kv_cache
-from .layers import MLP, MoE, mlp, moe, normal, rms_norm, zeros
+from .layers import (MLP, MoE, mlp, moe, normal, rms_norm,
+                     sinusoidal_positions, zeros)
 
-# families of the reference that later slices bring, with their ROADMAP item
-LATER_FAMILIES = {
-    "audio": "ROADMAP.md A8 (cross-attention and encoder)",
-    "vlm": "ROADMAP.md A8 (vision stub)",
-}
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+# rows of the absolute position table when init_params gets max_position=0
+DEFAULT_MAX_POSITION = 4096
 
 # Optional explicit expert-parallel MoE dispatch, installed with its mesh:
 #     set_moe_parallel(functools.partial(expert_parallel_moe, mesh=mesh,
@@ -51,23 +56,43 @@ def set_moe_parallel(fn):
 
 
 def check_family(cfg: ArchConfig):
-    if cfg.family in LATER_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family belongs to a later slice "
-            f"of the port ({LATER_FAMILIES[cfg.family]}); the port runs the "
-            f"{', '.join(FAMILIES)} families")
     if cfg.family not in FAMILIES:
-        raise ValueError(f"unknown family {cfg.family!r}")
+        raise ValueError(f"unknown family {cfg.family!r}; the port runs the "
+                         f"{', '.join(FAMILIES)} families")
 
 
 def model_dtype(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def layer_specs(cfg: ArchConfig) -> list:
-    """The LayerSpec of every layer, in the order the stack runs them."""
-    prefix, unit, reps = cfg.block_pattern()
+def stack_pattern(cfg: ArchConfig):
+    """(prefix, unit, reps) of the decoder stack: ``decoder_pattern()`` for
+    an encoder-decoder, ``block_pattern()`` otherwise, as the reference
+    picks them."""
+    return (cfg.decoder_pattern() if cfg.is_encoder_decoder
+            else cfg.block_pattern())
+
+
+def encoder_pattern(cfg: ArchConfig):
+    """(prefix, unit, reps) of the encoder: dense self-attention layers."""
+    return (), (LayerSpec(kind="attn", ffn="dense"),), cfg.encoder_layers
+
+
+def layer_specs(cfg: ArchConfig, pattern=None) -> list:
+    """The LayerSpec of every layer of ``pattern`` (default: the decoder
+    stack's), in the order the stack runs them."""
+    prefix, unit, reps = pattern or stack_pattern(cfg)
     return list(prefix) + [s for _ in range(reps) for s in unit]
+
+
+def check_dtype(cfg: ArchConfig, name: str, t: torch.Tensor):
+    """Refuse a tensor that is not in the model dtype (frames, the
+    encoder's output, cross caches)."""
+    if t.dtype != model_dtype(cfg):
+        raise ValueError(
+            f"{cfg.name}: {name} must be in the model dtype "
+            f"{model_dtype(cfg)}, got {t.dtype} (the reference fails on "
+            f"this too: its scan cannot carry the promoted residual)")
 
 
 # ---------------------------------------------------------------------------
@@ -80,18 +105,16 @@ def ssm_dims(cfg: ArchConfig) -> dict:
 
 
 class Layer(nn.Module):
-    """``init_layer``'s parameters: ``ln1`` and ``attn`` (or ``ssm``),
-    then for a dense FFN ``ln2`` and ``mlp``, for a MoE FFN ``ln2`` and
-    ``moe``, for ``ffn="none"`` nothing; with post-norms ``post_ln1`` and
-    (with an FFN) ``post_ln2``.  Norm scales are float32 zeros."""
+    """``init_layer``'s parameters: ``ln1`` and ``attn`` (or ``ssm``);
+    for a cross layer ``ln_x`` and ``cross`` (an attention without
+    qk-norm); then for a dense FFN ``ln2`` and ``mlp``, for a MoE FFN
+    ``ln2`` and ``moe``, for ``ffn="none"`` nothing; with post-norms
+    ``post_ln1`` and (with an FFN) ``post_ln2``.  Norm scales are float32
+    zeros."""
 
     def __init__(self, cfg: ArchConfig, spec: LayerSpec, *, device,
                  generator=None):
         super().__init__()
-        if spec.cross:
-            raise NotImplementedError(
-                f"layer {spec} belongs to a later slice of the port "
-                "(ROADMAP.md A8: cross-attention and encoder)")
         dt, D = model_dtype(cfg), cfg.d_model
         g = dict(device=device, dtype=dt, generator=generator)
         self.ln1 = zeros((D,), device=device)
@@ -103,6 +126,10 @@ class Layer(nn.Module):
             self.ssm = ssm_mod.SSM(D, ssm_dims(cfg), **g)
         if cfg.post_norms:
             self.post_ln1 = zeros((D,), device=device)
+        if spec.cross:
+            self.ln_x = zeros((D,), device=device)
+            self.cross = Attention(D, cfg.num_heads, cfg.num_kv_heads,
+                                   cfg.resolved_head_dim, **g)
         if spec.ffn == "none":
             return
         self.ln2 = zeros((D,), device=device)
@@ -116,17 +143,30 @@ class Layer(nn.Module):
             self.post_ln2 = zeros((D,), device=device)
 
 
-class Transformer(nn.Module):
-    """``init_params``'s tree: ``embed`` (V, D), ``final_norm``, optionally
-    ``unembed`` (D, V), and ``layers`` in run order (see module doc)."""
+class Encoder(nn.Module):
+    """The reference's ``params["encoder"]``: ``layers`` (its ``unit``,
+    one dense self-attention layer a rep) and ``final_norm``."""
 
     def __init__(self, cfg: ArchConfig, *, device, generator=None):
         super().__init__()
+        self.specs = layer_specs(cfg, encoder_pattern(cfg))
+        self.layers = nn.ModuleList(
+            Layer(cfg, s, device=device, generator=generator)
+            for s in self.specs)
+        self.final_norm = zeros((cfg.d_model,), device=device)
+
+
+class Transformer(nn.Module):
+    """``init_params``'s tree: ``embed`` (V, D), ``final_norm``, optionally
+    ``unembed`` (D, V), ``pos_embed`` (max_position, D) with absolute
+    positions, ``vision_proj`` (vision_embed_dim, D) with the vision stub,
+    ``encoder`` (:class:`Encoder`) for an encoder-decoder, and ``layers``
+    in run order (see module doc)."""
+
+    def __init__(self, cfg: ArchConfig, *, device, generator=None,
+                 max_position: int = 0):
+        super().__init__()
         check_family(cfg)
-        if cfg.abs_pos_embed or cfg.vision_patches:
-            raise NotImplementedError(
-                "absolute position embeddings and the vision stub belong to "
-                "a later slice of the port (ROADMAP.md A8)")
         dt, D, V = model_dtype(cfg), cfg.d_model, cfg.padded_vocab
         g = dict(generator=generator, device=device, dtype=dt)
         self.cfg = cfg
@@ -135,21 +175,32 @@ class Transformer(nn.Module):
         self.final_norm = zeros((D,), device=device)
         if not cfg.tie_embeddings:
             self.unembed = normal((D, V), D ** -0.5, **g)
+        if cfg.abs_pos_embed:
+            self.pos_embed = normal(
+                (max_position or DEFAULT_MAX_POSITION, D), 0.01, **g)
+        if cfg.vision_patches:
+            E = cfg.vision_embed_dim
+            self.vision_proj = normal((E, D), E ** -0.5, **g)
         self.layers = nn.ModuleList(
             Layer(cfg, s, device=device, generator=generator)
             for s in self.specs)
+        if cfg.is_encoder_decoder:
+            self.encoder = Encoder(cfg, device=device, generator=generator)
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
-                generator=None) -> Transformer:
+def init_params(cfg: ArchConfig, seed: int = 0, *, max_position: int = 0,
+                device=None, generator=None) -> Transformer:
     """Random weights with the reference's shapes and scales, drawn on the
-    device from ``generator`` (or a generator seeded with ``seed``).  The
-    draws are torch's, not ``jax.random``'s: to compare with the reference,
-    convert its weights (:func:`repro_torch.interop.params_from_reference`)."""
+    device from ``generator`` (or a generator seeded with ``seed``);
+    ``max_position`` rows of ``pos_embed`` (0: 4096), as the reference's.
+    The draws are torch's, not ``jax.random``'s: to compare with the
+    reference, convert its weights
+    (:func:`repro_torch.interop.params_from_reference`)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(seed)
-    return Transformer(cfg, device=dev, generator=generator)
+    return Transformer(cfg, device=dev, generator=generator,
+                       max_position=max_position)
 
 
 # ---------------------------------------------------------------------------
@@ -157,11 +208,13 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None,
 # ---------------------------------------------------------------------------
 
 def apply_layer(cfg: ArchConfig, spec: LayerSpec, p: Layer, x, *,
-                positions, causal=True, cache=None, cache_pos=None):
-    """One block: attention or SSM, then the FFN (dense, MoE or none),
-    pre-norm residual (post-norms when the config has them).  Under a
-    cache the MoE dispatches dropless, as the reference's serving path.
-    Returns (x, cache, aux); aux is empty without a MoE."""
+                positions, causal=True, cache=None, cache_pos=None,
+                enc_out=None, cross_cache=None):
+    """One block: attention or SSM, then for a cross layer attention over
+    ``enc_out`` (or its read-only ``cross_cache``), then the FFN (dense,
+    MoE or none), pre-norm residual (post-norms when the config has them).
+    Under a cache the MoE dispatches dropless, as the reference's serving
+    path.  Returns (x, cache, aux); aux is empty without a MoE."""
     aux = {}
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if spec.kind == "attn":
@@ -179,6 +232,16 @@ def apply_layer(cfg: ArchConfig, spec: LayerSpec, p: Layer, x, *,
     if cfg.post_norms:
         out = rms_norm(out, p.post_ln1, cfg.norm_eps)
     x = x + out
+    if spec.cross:
+        if enc_out is None:
+            raise ValueError(f"{cfg.name}: a cross-attention layer needs "
+                             "enc_out")
+        h = rms_norm(x, p.ln_x, cfg.norm_eps)
+        out, _ = attention(
+            p.cross, h, positions=positions, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+            causal=False, x_kv=enc_out, kv_cache=cross_cache)
+        x = x + out
     if spec.ffn == "none":
         return x, new_cache, aux
     h = rms_norm(x, p.ln2, cfg.norm_eps)
@@ -206,21 +269,29 @@ def _acc_aux(acc: dict, aux: dict) -> dict:
     return {k: acc[k] + aux[k] for k in acc} if aux else acc
 
 
-def run_stack(cfg: ArchConfig, params: Transformer, x, *, positions,
-              causal=True, caches=None, cache_pos=None):
-    """Apply every layer in run order.  ``caches`` is a per-layer list (or
-    None).  Returns (x, caches, aux): aux summed as the reference sums it,
-    the prefix's layers in turn, then each rep's unit layers from zero,
-    then the reps' sums."""
-    prefix, unit, _ = cfg.block_pattern()
+def run_stack(cfg: ArchConfig, stack, x, *, positions, causal=True,
+              caches=None, cache_pos=None, enc_out=None, cross_caches=None,
+              pattern=None):
+    """Apply every layer of ``stack`` (a module with ``specs`` and
+    ``layers``: the model, or its :class:`Encoder` with ``pattern=
+    encoder_pattern(cfg)``) in run order.  ``caches`` and ``cross_caches``
+    are per-layer lists (or None); ``enc_out`` goes to every layer and the
+    cross caches to the unit's layers only, as the reference passes them.
+    Returns (x, caches, aux): aux summed as the reference sums it, the
+    prefix's layers in turn, then each rep's unit layers from zero, then
+    the reps' sums."""
+    prefix, unit, _ = pattern or stack_pattern(cfg)
     n_pre = len(prefix)
     new_caches = []
     aux_sum = zero_aux(x.device)
     reps = []
-    for i, (spec, p) in enumerate(zip(params.specs, params.layers)):
+    for i, (spec, p) in enumerate(zip(stack.specs, stack.layers)):
         c = caches[i] if caches is not None else None
+        xc = cross_caches[i] if cross_caches is not None and i >= n_pre \
+            else None
         x, nc, aux = apply_layer(cfg, spec, p, x, positions=positions,
-                                 causal=causal, cache=c, cache_pos=cache_pos)
+                                 causal=causal, cache=c, cache_pos=cache_pos,
+                                 enc_out=enc_out, cross_cache=xc)
         new_caches.append(nc)
         if i < n_pre:
             aux_sum = _acc_aux(aux_sum, aux)
@@ -238,17 +309,54 @@ def run_stack(cfg: ArchConfig, params: Transformer, x, *, positions,
 # model entry points
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=8)
+def _sinusoid_on(seq: int, dim: int, dtype: torch.dtype,
+                 device: torch.device):
+    """:func:`sinusoidal_positions` rounded to ``dtype`` on ``device``,
+    copied there once."""
+    return torch.as_tensor(sinusoidal_positions(seq, dim),
+                           device=device).to(dtype)
+
+
+def encode(cfg: ArchConfig, params: Transformer, frames, *, device=None):
+    """Whisper encoder over stub frame embeddings (B, F, D) in the model
+    dtype: the sinusoidal table rounded to that dtype is added, then the
+    non-causal stack of ``encoder_layers`` and the encoder's final norm."""
+    dev = check_device(params, device)
+    frames = to_device(frames, dev)
+    check_dtype(cfg, "frames", frames)
+    B, F, D = frames.shape
+    x = frames + _sinusoid_on(F, D, frames.dtype, frames.device)[None]
+    positions = torch.arange(F, device=frames.device)[None].expand(B, F)
+    x, _, _ = run_stack(cfg, params.encoder, x, positions=positions,
+                        causal=False, pattern=encoder_pattern(cfg))
+    return rms_norm(x, params.encoder.final_norm, cfg.norm_eps)
+
+
 def embed_inputs(cfg: ArchConfig, params: Transformer, tokens,
-                 pos_offset: int = 0):
+                 pos_offset: int = 0, *, patch_embeds=None):
     """Token embedding (× √D rounded to the model dtype when the config
-    scales it) and the (B, S) absolute positions."""
+    scales it), the projected patch embeddings before the text (cast to the
+    model dtype first), the absolute position rows from ``pos_offset``
+    (the start clamped so the rows fit the table, as
+    ``dynamic_slice_in_dim`` clamps it), and the (B, S) positions."""
     x = params.embed[tokens]
     if cfg.embed_scale:
         # √D rounded to the model dtype on the host (no device copy)
         x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
+    if patch_embeds is not None:
+        pe = patch_embeds.to(x.dtype) @ params.vision_proj
+        x = torch.cat([pe, x], dim=1)
     B, S = x.shape[:2]
     positions = pos_offset + torch.arange(S, device=x.device)[None] \
         .expand(B, S)
+    if cfg.abs_pos_embed:
+        rows = params.pos_embed.shape[0]
+        if S > rows:
+            raise ValueError(f"{S} positions do not fit the {rows}-row "
+                             "position table")
+        start = min(max(pos_offset, 0), rows - S)
+        x = x + params.pos_embed[start:start + S][None]
     return x, positions
 
 
@@ -279,12 +387,22 @@ def check_device(params: Transformer, device) -> torch.device:
 def forward(cfg: ArchConfig, params: Transformer, batch: dict, *,
             device=None):
     """Training / evaluation forward: returns (logits, aux).  ``batch``
-    holds ``tokens`` (B, S) (a tensor or numpy array, moved to the
+    holds ``tokens`` (B, S), for an encoder-decoder ``frames`` (B, F, D)
+    in the model dtype, and for the vision stub optionally
+    ``patch_embeds`` (B, P, E) (tensors or numpy arrays, moved to the
     parameters' device)."""
     dev = check_device(params, device)
     tokens = to_device(batch["tokens"], dev)
-    x, positions = embed_inputs(cfg, params, tokens)
-    x, _, aux = run_stack(cfg, params, x, positions=positions, causal=True)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        enc_out = encode(cfg, params, batch["frames"], device=dev)
+    patch_embeds = batch.get("patch_embeds")
+    if patch_embeds is not None:
+        patch_embeds = to_device(patch_embeds, dev)
+    x, positions = embed_inputs(cfg, params, tokens,
+                                patch_embeds=patch_embeds)
+    x, _, aux = run_stack(cfg, params, x, positions=positions, causal=True,
+                          enc_out=enc_out)
     return lm_head(cfg, params, x), aux
 
 
@@ -301,33 +419,62 @@ def init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
                dtype=torch.bfloat16, *, device=None) -> list:
-    """Decode caches for the whole stack, one dict per layer in run order:
-    KV caches for attention layers (ring buffers where the window <
-    max_seq), ``{"conv", "h"}`` for SSM layers."""
+    """Decode caches for the whole decoder stack, one dict per layer in run
+    order: KV caches for attention layers (ring buffers where the window <
+    max_seq), ``{"conv", "h"}`` for SSM layers.  Cross caches come from
+    :func:`prefill_cross_caches`."""
     check_family(cfg)
     dev = resolve_device(device)
     return [init_layer_cache(cfg, s, batch, max_seq, dtype, device=dev)
             for s in layer_specs(cfg)]
 
 
+def prefill_cross_caches(cfg: ArchConfig, params: Transformer, enc_out):
+    """Read-only cross-attention K/V from the encoder's output (B, F, D),
+    one ``{"k", "v"}`` (B, F, KH, hd) a layer in run order (None for a
+    layer without cross-attention)."""
+    check_dtype(cfg, "enc_out", enc_out)
+    return [{"k": torch.einsum("bsd,dhk->bshk", enc_out, p.cross.wk),
+             "v": torch.einsum("bsd,dhk->bshk", enc_out, p.cross.wv)}
+            if s.cross else None
+            for s, p in zip(params.specs, params.layers)]
+
+
 def step_with_cache(cfg: ArchConfig, params: Transformer, caches, tokens,
-                    pos: int):
+                    pos: int, patch_embeds=None, enc_out=None,
+                    cross_caches=None):
     """Forward S tokens (S=1 decode, S>1 prefill) writing the caches at
-    ``pos`` (one position for the whole batch).  Returns (logits, caches);
+    ``pos`` (one position for the whole batch), with the vision stub's
+    ``patch_embeds`` before the text and an encoder-decoder's ``enc_out``
+    and ``cross_caches`` (in the model dtype).  Returns (logits, caches);
     the caches are written in place."""
     if isinstance(pos, torch.Tensor):
         if pos.ndim != 0:
+            if cfg.abs_pos_embed:
+                raise ValueError(
+                    "per-sequence positions are not supported with absolute "
+                    "position embeddings (the pos_embed table is indexed by "
+                    "a uniform batch offset); use a scalar pos")
             raise NotImplementedError(
                 "per-sequence positions (continuous batching) belong to a "
                 "later slice of the port (ROADMAP.md A9)")
         pos = int(pos)
-    x, positions = embed_inputs(cfg, params, tokens, pos_offset=pos)
+    if enc_out is not None:
+        check_dtype(cfg, "enc_out", enc_out)
+    for c in cross_caches or ():
+        if c is not None:
+            check_dtype(cfg, "a cross cache", c["k"])
+            check_dtype(cfg, "a cross cache", c["v"])
+    x, positions = embed_inputs(cfg, params, tokens, pos,
+                                patch_embeds=patch_embeds)
     x, new_caches, _ = run_stack(cfg, params, x, positions=positions,
-                                 causal=True, caches=caches, cache_pos=pos)
+                                 causal=True, caches=caches, cache_pos=pos,
+                                 enc_out=enc_out, cross_caches=cross_caches)
     return lm_head(cfg, params, x), new_caches
 
 
 def decode_step(cfg: ArchConfig, params: Transformer, caches, tokens,
-                pos: int):
+                pos: int, enc_out=None, cross_caches=None):
     """One serving step: ``tokens`` (B, 1) at absolute position ``pos``."""
-    return step_with_cache(cfg, params, caches, tokens, pos)
+    return step_with_cache(cfg, params, caches, tokens, pos,
+                           enc_out=enc_out, cross_caches=cross_caches)

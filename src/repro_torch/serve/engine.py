@@ -41,27 +41,39 @@ class GenerateConfig:
 
 @torch.no_grad()
 def prefill(cfg: ArchConfig, params, tokens, *, max_seq: int,
-            cache_dtype=torch.bfloat16, device=None):
-    """Run the prompt through the model, returning (last_logits, caches)."""
+            cache_dtype=torch.bfloat16, patch_embeds=None, enc_out=None,
+            cross_caches=None, device=None):
+    """Run the prompt (after the vision stub's patches, when given) through
+    the model, returning (last_logits, caches)."""
     dev = T.check_device(params, device)
     tokens = to_device(tokens, dev)
+    if patch_embeds is not None:
+        patch_embeds = to_device(patch_embeds, dev)
     caches = T.init_cache(cfg, tokens.shape[0], max_seq, cache_dtype,
                           device=dev)
-    logits, caches = T.step_with_cache(cfg, params, caches, tokens, 0)
+    logits, caches = T.step_with_cache(
+        cfg, params, caches, tokens, 0, patch_embeds=patch_embeds,
+        enc_out=enc_out, cross_caches=cross_caches)
     return logits[:, -1], caches
 
 
 @torch.no_grad()
 def generate(cfg: ArchConfig, params, prompt, gcfg: GenerateConfig, *,
              max_seq: Optional[int] = None, cache_dtype=torch.bfloat16,
+             enc_out=None, cross_caches=None, patch_embeds=None,
              budgets=None, device=None):
     """Batched greedy generation.  Returns (tokens (B, max_new), lengths,
     iters), as the reference's ``generate``.
 
-    ``budgets`` is an optional (B,) int vector of per-sequence
-    ``max_new_tokens`` (each in [1, gcfg.max_new_tokens]): the done-mask
-    retires a sequence at its own budget; ``lengths`` is clipped to it
-    (post-done positions are eos-padded)."""
+    An encoder-decoder takes ``enc_out`` and ``cross_caches``
+    (:func:`~repro_torch.models.transformer.prefill_cross_caches`), both
+    in the model dtype, into every step; the vision stub takes
+    ``patch_embeds`` into the prefill, and its decode positions start
+    after ``cfg.vision_patches`` of them.  ``budgets`` is an optional (B,)
+    int vector of per-sequence ``max_new_tokens`` (each in [1,
+    gcfg.max_new_tokens]): the done-mask retires a sequence at its own
+    budget; ``lengths`` is clipped to it (post-done positions are
+    eos-padded)."""
     if gcfg.temperature > 0:
         raise NotImplementedError(
             "sampled decode (temperature > 0) belongs to a later slice of "
@@ -70,11 +82,14 @@ def generate(cfg: ArchConfig, params, prompt, gcfg: GenerateConfig, *,
     dev = T.check_device(params, device)
     prompt = to_device(prompt, dev)
     B, S0 = prompt.shape
+    P = cfg.vision_patches or 0
     max_new = gcfg.max_new_tokens
-    max_seq = max_seq or (S0 + max_new)
+    max_seq = max_seq or (S0 + P + max_new)
 
     last_logits, caches = prefill(cfg, params, prompt, max_seq=max_seq,
-                                  cache_dtype=cache_dtype, device=dev)
+                                  cache_dtype=cache_dtype,
+                                  patch_embeds=patch_embeds, enc_out=enc_out,
+                                  cross_caches=cross_caches, device=dev)
     bud = (torch.full((B,), max_new, dtype=torch.int32, device=dev)
            if budgets is None else
            torch.as_tensor(budgets, dtype=torch.int32, device=dev))
@@ -87,7 +102,8 @@ def generate(cfg: ArchConfig, params, prompt, gcfg: GenerateConfig, *,
         caches, out, done, t = carry
         tok = out[:, t - 1:t]
         logits, caches = T.decode_step(cfg, params, caches, tok,
-                                       S0 + t - 1)
+                                       S0 + P + t - 1, enc_out=enc_out,
+                                       cross_caches=cross_caches)
         nxt = torch.argmax(logits[:, 0], dim=-1)
         nxt = torch.where(done, torch.full_like(nxt, gcfg.eos_id), nxt)
         if max_new > 1:

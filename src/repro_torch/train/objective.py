@@ -17,11 +17,17 @@ Z_COEF = 1e-4    # weight of the router z-loss
 
 @torch.no_grad()
 def lm_loss(cfg: ArchConfig, params, batch, *, device=None):
-    """Mean next-token CE over ``batch['tokens']`` against
-    ``batch['labels']``, plus ``LB_COEF·lb_loss + Z_COEF·router_z`` for a
-    MoE config.  Returns (loss, metrics); ``metrics['loss']`` is the CE."""
+    """Mean next-token CE over the text positions of the forward of
+    ``batch`` (``tokens``, and ``frames`` or ``patch_embeds`` where the
+    model takes them; the vision stub's first ``cfg.vision_patches``
+    positions are left out) against ``batch['labels']``, plus
+    ``LB_COEF·lb_loss + Z_COEF·router_z`` for a MoE config.  Returns
+    (loss, metrics); ``metrics['loss']`` is the CE."""
     logits, aux = T.forward(cfg, params, batch, device=device)
     labels = torch.as_tensor(batch["labels"], device=logits.device)
+    P = cfg.vision_patches or 0
+    if P:
+        logits = logits[:, P:]                 # loss only on text positions
     logp = torch.log_softmax(logits.float(), dim=-1)
     del logits
     ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]

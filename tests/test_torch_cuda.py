@@ -895,3 +895,107 @@ def test_cuda_family_greedy_equals_dropless_teacher_forced(cuda_f32, arch):
     for b in range(2):
         L = int(lengths[b])
         assert torch.equal(out[b, :L].long(), exp[b, :L])
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder and vision-stub families; the gradient refusal
+# ---------------------------------------------------------------------------
+
+
+def family_extras(cfg, B, device, seed=0):
+    """The frames (model dtype) or patch embeddings (float32) a reduced
+    whisper or phi-3-vision forward takes."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    if cfg.is_encoder_decoder:
+        return {"frames": torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                      generator=g, device=device)}
+    return {"patch_embeds": torch.randn(
+        (B, cfg.vision_patches, cfg.vision_embed_dim), generator=g,
+        device=device)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-base", "phi-3-vision-4.2b"])
+def test_cuda_encdec_and_vlm_routes_agree(cuda_f32, arch):
+    """float32 reduced forwards: the flash route (the decoder's
+    self-attention only) against the einsum route, one launch a layer."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import attention as TA
+    from repro_torch.models import transformer as TT
+    cfg = get_reduced(arch)
+    model = TT.init_params(cfg, seed=0, max_position=256, device=cuda_f32)
+    S = 128 - (cfg.vision_patches or 0)
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, S)), device=cuda_f32),
+        **family_extras(cfg, 2, cuda_f32)}
+    before = swa_launches()
+    flash, _ = TT.forward(cfg, model, batch)
+    assert swa_launches() - before == cfg.num_layers
+    TA.set_flash_swa(False)
+    try:
+        einsum, _ = TT.forward(cfg, model, batch)
+    finally:
+        TA.set_flash_swa(None)
+    assert swa_launches() - before == cfg.num_layers
+    torch.testing.assert_close(flash, einsum, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-base", "phi-3-vision-4.2b"])
+def test_cuda_encdec_and_vlm_greedy_equals_teacher_forced(cuda_f32, arch):
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as TT
+    from repro_torch.serve import GenerateConfig, generate
+    cfg = get_reduced(arch)
+    model = TT.init_params(cfg, seed=1, device=cuda_f32)
+    extras = family_extras(cfg, 2, cuda_f32, seed=1)
+    kw = {}
+    if cfg.is_encoder_decoder:
+        enc = TT.encode(cfg, model, extras["frames"])
+        kw = dict(enc_out=enc,
+                  cross_caches=TT.prefill_cross_caches(cfg, model, enc))
+    else:
+        kw = dict(patch_embeds=extras["patch_embeds"])
+    prompt = np.random.default_rng(1).integers(2, cfg.vocab_size, (2, 12))
+    out, lengths, _ = generate(cfg, model, prompt,
+                               GenerateConfig(max_new_tokens=8),
+                               cache_dtype=torch.float32, **kw)
+    full = torch.cat([torch.as_tensor(prompt, device=cuda_f32),
+                      out.long()], dim=1)
+    logits, _ = TT.forward(cfg, model, {"tokens": full, **extras})
+    P = cfg.vision_patches or 0
+    exp = logits[:, P + 11:-1].argmax(dim=-1)
+    for b in range(2):
+        L = int(lengths[b])
+        assert torch.equal(out[b, :L].long(), exp[b, :L])
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_route_refuses_gradients(cuda_f32):
+    """The flash route has no backward: a forward under grad with a
+    parameter that requires grad raises on the card, and the einsum route
+    back-propagates to it."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import attention as TA
+    from repro_torch.models import transformer as TT
+    cfg = get_reduced("whisper-base")
+    model = TT.init_params(cfg, seed=0, max_position=256, device=cuda_f32)
+    batch = {"tokens": torch.zeros((1, 128), dtype=torch.long,
+                                   device=cuda_f32),
+             **family_extras(cfg, 1, cuda_f32)}
+    wq = model.layers[0].attn.wq
+    wq.requires_grad_(True)
+    before = swa_launches()
+    with pytest.raises(RuntimeError, match="no backward"):
+        TT.forward(cfg, model, batch)
+    assert swa_launches() == before
+    with torch.no_grad():
+        TT.forward(cfg, model, batch)
+    assert swa_launches() == before + cfg.num_layers
+    TA.set_flash_swa(False)
+    try:
+        logits, _ = TT.forward(cfg, model, batch)
+    finally:
+        TA.set_flash_swa(None)
+    logits.logsumexp(dim=-1).mean().backward()
+    assert wq.grad is not None and float(wq.grad.abs().max()) > 0

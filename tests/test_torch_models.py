@@ -180,8 +180,8 @@ def test_attention_refuses_later_slices():
     x = torch.zeros(1, 4, 64)
     pos = torch.arange(4)[None]
     kw = dict(positions=pos, num_heads=4, num_kv_heads=2, head_dim=16)
-    with pytest.raises(NotImplementedError, match="A8"):
-        TA.attention(a, x, x_kv=x, **kw)
+    out, cache = TA.attention(a, x, x_kv=x, **kw)      # cross: no refusal
+    assert out.shape == x.shape and cache is None
     with pytest.raises(NotImplementedError, match="A9"):
         TA.attention(a, x, kv_len=torch.tensor([4]), **kw)
     cache = TA.init_kv_cache(2, 8, 2, 16, torch.float32, device="cpu")
@@ -314,12 +314,14 @@ def test_reference_layers_puts_the_prefix_first():
     assert [float(l["w"][0]) for l in layers] == [-1.0] + list(range(reps))
 
 
-@pytest.mark.parametrize("arch", ["whisper-base", "phi-3-vision-4.2b"])
-def test_other_families_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
-        TT.init_params(port_reduced(arch), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
-        TT.init_cache(port_reduced(arch), 1, 16, device="cpu")
+@pytest.mark.parametrize("entry", ["init_params", "init_cache"])
+def test_unknown_family_raises(entry):
+    import dataclasses
+    cfg = dataclasses.replace(port_reduced("gemma2-9b"), family="speech")
+    call = {"init_params": lambda: TT.init_params(cfg, device="cpu"),
+            "init_cache": lambda: TT.init_cache(cfg, 1, 16, device="cpu")}
+    with pytest.raises(ValueError, match="unknown family 'speech'"):
+        call[entry]()
 
 
 def test_init_params_shapes_scales_and_seed():
