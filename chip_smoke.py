@@ -12,7 +12,8 @@ Loop-of-stencil-reduce on "cuda" and "cuda-multistep", the lane farm
 restoration stream, the sharded 1:n tier ("cuda-sharded") on meshes of
 the card, the streaming FarmEngine over meshes of the card (lanes over a
 mesh axis, and the composed lanes x spatial farm), the gemma2-9b
-scoring forward and greedy serving, the MoE, SSM and hybrid families
+scoring forward, greedy serving and the serve tier (continuous batching,
+the int8 KV cache, sampled decode), the MoE, SSM and hybrid families
 (deepseek-moe-16b, qwen3-moe-30b-a3b, mamba2-130m, jamba-v0.1-52b), and
 the encoder-decoder and vision-stub families (whisper-base,
 phi-3-vision-4.2b) — on one CUDA card at full size:
@@ -186,6 +187,30 @@ phi-3-vision-4.2b) — on one CUDA card at full size:
      (B x 448 labels); (e) the same in f32 at depth 2 under the f32
      gates; greedy serving B=2 x (576 + 448) + 32 in bf16 and (exact) in
      f32 at depth 2; then the ``kernels`` line;
+ 20. the serve tier, run inside phases 12-13 on their models: (a)
+     gemma2-9b bf16 at full width and depth through ``ContinuousEngine``
+     (4 slots, segment 8, the pool bound at 4576: max_seq 4608 > the
+     4096 window, so the 21 local layers' ring caches take ragged
+     prefills), 12 requests from ``--seed`` (prompts 512-4576, budgets
+     4-32): every rid once, two runs identical (tokens, order, stats),
+     the tokens against the argmax of unpadded B=1 forwards on >= 0.95
+     of positions, and after each admission a layer gate against a solo
+     unpadded prefill (K/V rows at real positions within an update gap
+     of 0.05, ring ``pos`` arrays exactly, no ring slot holding a pad),
+     which two planted faults (one pad key let in; the admission writing
+     the next slot) must fail; one segment under the profiler;
+     ``Batcher.run_all`` on the same requests beside it; (b) gemma2-9b
+     f32 at depth 2: each request's tokens equal its solo ``generate``
+     and the teacher-forced argmax exactly, deadlines on a counting clock
+     (shed, evicted), ``chained=True`` emitting the sync path's results,
+     a run killed at segment 3 and resumed from snapshot and journal on
+     3 and on 2 slots, each rid once with the uninterrupted tokens; (c)
+     16 decode steps on the int8 KV cache against the bf16 cache
+     (max|dlogits| < 0.15, correlation > 0.995; the caches' GB); (d)
+     mamba2-130m bf16: ``Batcher.run_continuous`` falls back to
+     exact-length groups with ``run_all``'s tokens; (e) sampled decode
+     at temperature 0.8 on (b)'s model: two runs identical, a killed and
+     resumed run equal to the uninterrupted one;
   6. torch.profiler breakdown of the kernel loops (three runs on "cuda",
      one on "cuda-multistep" at T=4): device time by kernel and the
      device's idle share;
@@ -193,12 +218,14 @@ phi-3-vision-4.2b) — on one CUDA card at full size:
      window slots (Helmholtz at T = 1, 4, 8; AMF k=3 and restore at
      1080x1920), the wrapper's choice marked.
 
-Every phase runs, at the sizes above, in the order listed.  Phases 2-4, 9,
+Every phase runs, at the sizes above, in the order listed (phase 20
+inside phases 12-13).  Phases 2-4, 9,
 10 and 14-16 are the stencil main path: the kernel launch counts are
 zeroed just before phase 2 and read just after phase 16 (the single-step
-launches also by shape, the multistep launches by T).  Phases 12-13 and
-17-19 are the LM main path: the counts (the attention's by route) are
-zeroed just before phase 12 and read just after phase 19; the bf16 layers
+launches also by shape, the multistep launches by T).  Phases 12-13, 20
+and 17-19 are the LM main path: the counts (the attention's by route) are
+zeroed just before phase 12 and read just after phase 19 (phase 20's
+cached attention takes no kernel, as in the reference); the bf16 layers
 at hd 64/128/256 must take the wgmma route and the f32 ones and bf16 at hd
 96 the CUDA-core route, and each route is its own entry of the
 ``kernels`` line.  Every phase's failure propagates: the
@@ -907,12 +934,14 @@ def phase5_shard(gen, rate, device="cuda"):
     return rows
 
 
-def profiled(fn):
+def profiled(fn, cpu=True):
     """Run ``fn`` under torch.profiler: (wall seconds, device-busy seconds,
-    [(device µs, count, kernel name)] sorted by time)."""
+    [(device µs, count, kernel name)] sorted by time).  ``cpu=False``
+    traces the device alone (a decode segment's host events take the
+    trace's processing tens of seconds)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         _, secs = wall(fn)
     rows = device_rows(prof)
     return secs, sum(r[0] for r in rows) * 1e-6, rows
@@ -3128,9 +3157,11 @@ def phase13(gen, model, cfg, label, cache_dtype):
                 same=same, decode_idle=1 - busy / secs)
 
 
-def lm_phases(gen):
-    """Phases 12-13 (the main path of this slice): bf16 gemma2-9b at full
-    width and depth, then the tight f32 gates at full width and depth 2."""
+def lm_phases(gen, seed):
+    """Phases 12-13 and 20: bf16 gemma2-9b at full width and depth (the
+    scoring forward, greedy serving, then continuous serving and the int8
+    cache on the same model), the tight f32 gates at full width and depth
+    2 (20(b) and 20(e) on that model too), and 20(d) on mamba2-130m."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -3141,14 +3172,29 @@ def lm_phases(gen):
         f" B parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
     r12 = phase12(gen, model, cfg, "bf16 full depth")
     r13 = phase13(gen, model, cfg, "bf16 full depth", torch.bfloat16)
+    t20 = time.perf_counter()
+    r20 = {"a": phase20a(cfg, model, seed, r13),
+           "c": phase20c(cfg, model, gen)}
+    t20 = time.perf_counter() - t20
     del model
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 1e9
+    log(f"[phase20] the bf16 model and every engine dropped: {left:.3f} GB "
+        f"still allocated")
+    if left > 1.0:
+        raise AssertionError(f"phase20: {left:.3f} GB outlive the engines")
     torch.cuda.empty_cache()
     cfg2 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
     model = lm_model(cfg2, gen)
     r12f = phase12(gen, model, cfg2, "f32 depth 2")
     r13f = phase13(gen, model, cfg2, "f32 depth 2", torch.float32)
+    t0 = time.perf_counter()
+    r20["b"] = phase20b(cfg2, model, seed)
+    r20["e"] = phase20e(cfg2, model, seed)
     del model
     torch.cuda.empty_cache()
+    r20["d"] = phase20d(gen, seed)
+    log(f"[main] phase 20 took {t20 + time.perf_counter() - t0:.1f} s")
     # the routes' gates, each held against its planted fault too: a gate
     # that passes the fault cannot see a band off by one tile
     gates = {"bf16 full depth": (r12, lambda g: (
@@ -3171,7 +3217,529 @@ def lm_phases(gen):
     if r13f["agree"] != 1.0:
         raise AssertionError("phase13 f32: greedy tokens differ from the "
                              "teacher-forced argmax")
-    return r12, r13, r12f, r13f
+    return r12, r13, r12f, r13f, r20
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the serve tier (continuous batching, the int8 cache, sampling)
+# ---------------------------------------------------------------------------
+
+SERVE20_SLOTS, SERVE20_SEGMENT, SERVE20_CAP = 4, 8, 32
+SERVE20_REQUESTS = 12
+SERVE20_PROMPTS = (512, SERVE_PROMPT)  # the pool binds at 4576: max_seq
+SERVE20_BUDGETS = (4, SERVE20_CAP)     # 4608 > the 4096 window (rings)
+SERVE20_F32_REQUESTS = 8               # 20(b), 20(e): f32 at depth 2
+SERVE20_INT8_STEPS = 16                # 20(c)
+SERVE20_SSM_LENS = (256, 384, 512, 640)  # 20(d): two requests a length
+SERVE20_E_PROMPTS = (256, 1024)        # 20(e): sampled decode
+# 20(a) gates, bf16 at full depth.  A padded and an unpadded prefill round
+# differently in bf16 (other product shapes), so tokens are held to the
+# teacher-forced argmax on most positions (gemma2's margins are wide: a
+# median top-1 - top-2 gap of 1.875 in phase 12) and each admission's
+# cache layer by layer: K/V rows at real positions within phase 17's
+# update-gap limit, ring positions exactly.  f32 (20(b)) is exact.
+MIN_AGREE_SERVE_BF16 = 0.95
+TOL_KV_GAP = 0.05      # phase 17's layer limit (TOL_MOE_LAYER_REL)
+# 20(c): the int8 cache against the bf16 one, the reference's own limits
+# (tests/models/test_archs.py TestInt8KVCache)
+TOL_INT8_LOGITS, MIN_INT8_CORR = 0.15, 0.995
+
+
+def serve20_requests(seed, cfg, n, lens, budgets):
+    """``n`` requests from ``seed``: prompt lengths in ``lens`` (the first
+    at its upper end, so the pool binds there, the second at its lower
+    end), budgets in ``budgets``."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    L = rng.integers(lens[0], lens[1] + 1, n)
+    L[0], L[1] = lens[1], lens[0]
+    bud = rng.integers(budgets[0], budgets[1] + 1, n)
+    return [Request(rid=i, prompt=rng.integers(2, cfg.vocab_size, int(L[i]))
+                    .astype(np.int32), max_new_tokens=int(bud[i]))
+            for i in range(n)]
+
+
+def serve20_engine(cfg, model, gcfg, *, gate=None, plen_shift=0,
+                   slot_shift=0, profile_at=None, **kw):
+    """A ContinuousEngine whose admissions can be checked (``gate(caches,
+    idx, prompt, plen)`` after each) or broken (``plen_shift``: the prefill
+    lets that many pad keys in; ``slot_shift``: the admission writes
+    another slot), and one of whose segments can be profiled
+    (``profile_at``: the segment's ordinal).  The hooks live on the
+    instance, not in the class's closures, so that dropping the engine
+    frees the model and the pool the gate reaches."""
+    from repro_torch.serve import ContinuousEngine
+
+    class Engine(ContinuousEngine):
+        def _fresh_prefill(self, prompt, plen):
+            return super()._fresh_prefill(prompt, plen + self.plen_shift)
+
+        def _write_slot(self, caches, idx, fresh):
+            super()._write_slot(caches, (idx + self.slot_shift)
+                                % self.slots, fresh)
+
+        def _admit_slot(self, carry, idx, prompt, plen, bud, adm):
+            carry = super()._admit_slot(carry, idx, prompt, plen, bud, adm)
+            if self.gate is not None:
+                self.gate(carry[0], idx, prompt, plen)
+            return carry
+
+        def _segment_core(self, carry):
+            self.n_seg += 1
+            if self.n_seg != self.profile_at:
+                return super()._segment_core(carry)
+            res = []
+            t0 = time.perf_counter()
+            secs, busy, rows = profiled(
+                lambda: res.append(super(Engine, self)._segment_core(carry)),
+                cpu=False)
+            self.profile = dict(secs=secs, busy=busy, rows=rows,
+                                steps=res[0][1],
+                                seconds=time.perf_counter() - t0)
+            return res[0]
+    eng = Engine(cfg, model, gcfg, **kw)
+    eng.gate, eng.plen_shift, eng.slot_shift = gate, plen_shift, slot_shift
+    eng.profile_at, eng.profile, eng.n_seg = profile_at, None, 0
+    return eng
+
+
+def admission_gate(cfg, model, cache_dtype, max_seq):
+    """The layer gate of an admission: the slot's cache against a solo
+    unpadded prefill of the same prompt, layer by layer.  Returns (gate,
+    readings): readings hold the worst K/V update gap over real rows, the
+    ring ``pos`` arrays that differ, and the ring slots holding a position
+    >= the prompt length (a pad)."""
+    import torch
+    from repro_torch.models import transformer as T
+    r = dict(gap=0.0, pos_differ=0, pad_slots=0, admissions=0, rows=0,
+             seconds=0.0)
+
+    def rel(a, b):
+        a, b = a.float().flatten(1), b.float().flatten(1)
+        return float(((a - b).norm(dim=1)
+                      / b.norm(dim=1).clamp_min(1e-30)).max())
+
+    @torch.no_grad()
+    def gate(caches, idx, prompt, plen):
+        t0 = time.perf_counter()
+        L = int(plen)
+        solo = T.init_cache(cfg, 1, max_seq, cache_dtype, device=DEVICE)
+        T.step_with_cache(cfg, model, solo, prompt[None, :L], 0)
+        for c, s in zip(caches, solo):
+            if "pos" in c:
+                pos, want = c["pos"][idx], s["pos"][0]
+                r["pos_differ"] += int(not torch.equal(pos, want))
+                r["pad_slots"] += int((pos >= L).sum())
+                rows = want >= 0
+            else:
+                rows = torch.arange(c["k"].shape[1], device=DEVICE) < L
+            for key in ("k", "v"):
+                r["gap"] = max(r["gap"], rel(c[key][idx][rows],
+                                             s[key][0][rows]))
+            r["rows"] += int(rows.sum())
+        r["admissions"] += 1
+        del solo
+        sync()
+        r["seconds"] += time.perf_counter() - t0
+    return gate, r
+
+
+def serve20_gates_pass(g) -> bool:
+    return (g["gap"] <= TOL_KV_GAP and g["pos_differ"] == 0
+            and g["pad_slots"] == 0)
+
+
+def serve_run(engine, reqs, **run_kw):
+    """One ``engine.run``: (emissions [(rid, tokens, status)], wall s)."""
+    seq = []
+
+    def sink(rid, toks, status):
+        seq.append((int(rid), [int(x) for x in toks], status))
+    _, secs = wall(lambda: engine.run(list(reqs), sink, **run_kw))
+    return seq, secs
+
+
+def without_wall(stats) -> dict:
+    return {k: v for k, v in stats.items() if k != "recovery_seconds"}
+
+
+def teacher_forced(cfg, model, reqs, seq):
+    """(hits, total): tokens equal to the argmax of an unpadded B=1 forward
+    over each request's prompt + tokens."""
+    import torch
+    from repro_torch.models import transformer as T
+    prompts = {r.rid: r.prompt for r in reqs}
+    hits = total = 0
+    for rid, toks, _ in seq:
+        if not toks:
+            continue
+        p = torch.as_tensor(prompts[rid], device=DEVICE).long()
+        t = torch.tensor(toks, device=DEVICE)
+        with torch.no_grad():
+            logits, _ = T.forward(cfg, model, {
+                "tokens": torch.cat([p, t])[None]})
+        exp = logits[0, len(p) - 1:-1].argmax(dim=-1)
+        hits += int((exp == t).sum())
+        total += len(toks)
+        del logits
+    return hits, total
+
+
+def phase20a(cfg, model, seed, r13=None):
+    """gemma2-9b bf16 continuous serving at full width and depth; the
+    profiled segment is logged beside phase 13's decode (``r13``)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import Batcher, GenerateConfig
+    from repro_torch.serve import batcher as TB
+    reqs = serve20_requests(seed, cfg, SERVE20_REQUESTS, SERVE20_PROMPTS,
+                            SERVE20_BUDGETS)
+    gcfg = GenerateConfig(max_new_tokens=SERVE20_CAP, eos_id=1)
+    S0 = SERVE20_PROMPTS[1]
+    kw = dict(slots=SERVE20_SLOTS, segment=SERVE20_SEGMENT,
+              max_prompt_len=S0, cache_dtype=torch.bfloat16)
+    gate, g = admission_gate(cfg, model, torch.bfloat16,
+                             S0 + SERVE20_CAP)
+    eng1 = serve20_engine(cfg, model, gcfg, gate=gate, profile_at=2, **kw)
+    seq1, secs1 = serve_run(eng1, reqs)
+    prof, st1 = eng1.profile, without_wall(eng1.stats)
+    del eng1
+    eng2 = serve20_engine(cfg, model, gcfg, **kw)
+    seq2, secs = serve_run(eng2, reqs)
+    st = eng2.stats
+    del eng2
+    torch.cuda.empty_cache()
+    same = seq1 == seq2 and st1 == without_wall(st)
+    rids = sorted(r for r, _, _ in seq2)
+    once = rids == list(range(len(reqs)))
+    n_tok = sum(len(t) for _, t, _ in seq2)
+    (hits, total), secs_tf = wall(lambda: teacher_forced(cfg, model, reqs,
+                                                        seq2))
+    t_faults = time.perf_counter()
+    # the planted faults, each on the shortest request alone
+    short = [dataclasses.replace(min(reqs, key=lambda r: len(r.prompt)),
+                                 max_new_tokens=4)]
+    faults = {}
+    for name, hook in (("kv_len + 1", dict(plen_shift=1)),
+                       ("slot (idx + 1) mod slots", dict(slot_shift=1))):
+        gate_f, gf = admission_gate(cfg, model, torch.bfloat16,
+                                    S0 + SERVE20_CAP)
+        eng = serve20_engine(cfg, model, gcfg, gate=gate_f, **hook, **kw)
+        serve_run(eng, short)
+        faults[name] = gf
+        del eng
+        torch.cuda.empty_cache()
+    t_faults = time.perf_counter() - t_faults
+    # round mode on the same requests: exact-length batches
+    shapes = []
+    real_generate = TB.generate
+
+    def recorded(cfg_, params, prompt, gcfg_, **kw_):
+        out = real_generate(cfg_, params, prompt, gcfg_, **kw_)
+        shapes.append((len(prompt), int(out[2])))
+        return out
+    TB.generate = recorded
+    try:
+        b = Batcher(cfg, model, gcfg, max_batch=SERVE20_SLOTS,
+                    cache_dtype=torch.bfloat16)
+        for r in reqs:
+            b.submit(r)
+        res_all, secs_all = wall(b.run_all)
+    finally:
+        TB.generate = real_generate
+    slot_all = sum(B * it for B, it in shapes)
+    idle_all = slot_all - sum(max(len(r.tokens) - 1, 0) for r in res_all)
+    steps = prof["steps"] if prof else 0
+    log(f"[phase20] (a) {LM_ARCH} bf16 full depth: ContinuousEngine slots "
+        f"{SERVE20_SLOTS}, segment {SERVE20_SEGMENT}, max_prompt_len {S0} "
+        f"(max_seq {S0 + SERVE20_CAP}, "
+        f"{sum(0 < s.window < S0 + SERVE20_CAP for s in T.layer_specs(cfg))}"
+        f" ring-cache layers), cap {SERVE20_CAP}; {len(reqs)} requests, "
+        f"prompts {sorted(len(r.prompt) for r in reqs)}, budgets "
+        f"{[r.max_new_tokens for r in reqs]}")
+    log(f"[phase20] (a) segments {st['segments']}, admissions "
+        f"{st['prefills']}, slot_steps {st['slot_steps']}, idle_slot_steps "
+        f"{st['idle_slot_steps']}; wall {secs:.3f} s ({secs / max(st['segments'], 1) * 1e3:.1f} "
+        f"ms a segment, admissions included), {n_tok} tokens: "
+        f"{secs / max(n_tok, 1) * 1e3:.2f} ms per generated token, "
+        f"{n_tok / secs:.1f} tokens/s; every rid once {once}; two runs "
+        f"identical (tokens, order, stats) {same}")
+    if prof:
+        log(f"[phase20] (a) segment 2 under the profiler: {steps} steps, "
+            f"wall {prof['secs'] / max(steps, 1) * 1e3:.3f} ms a step, "
+            f"device busy {prof['busy'] / max(steps, 1) * 1e3:.3f} ms (idle "
+            f"share {1 - prof['busy'] / prof['secs']:.3f}), "
+            f"{sum(r[1] for r in prof['rows']) / max(steps, 1):.0f} kernels "
+            f"a step" + (f"; phase 13's B=2 decode beside it: "
+                         f"{r13['step_ms']:.3f} ms a step (decode_step "
+                         f"alone), idle share {r13['decode_idle']:.3f}"
+                         if r13 else ""))
+        for us, count, key in prof["rows"][:6]:
+            log(f"[phase20]   {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    log(f"[phase20] (a) teacher-forced argmax (unpadded B=1 forwards): "
+        f"{hits}/{total} ({hits / max(total, 1):.4f}; limit "
+        f"{MIN_AGREE_SERVE_BF16}); layer gates over {g['admissions']} "
+        f"admissions ({g['rows']} real rows): worst K/V update gap "
+        f"{g['gap']:.4g} (limit {TOL_KV_GAP}: {g['gap'] / TOL_KV_GAP:.3f} of "
+        f"it), ring pos arrays differing {g['pos_differ']}, ring slots "
+        f"holding a pad {g['pad_slots']}")
+    for name, gf in faults.items():
+        log(f"[phase20] (a) planted fault '{name}' ({gf['admissions']} "
+            f"admission): gap {gf['gap']:.4g}, ring pos arrays differing "
+            f"{gf['pos_differ']}, pad slots {gf['pad_slots']}: the gates "
+            f"pass it {serve20_gates_pass(gf)}")
+    log(f"[phase20] (a) Batcher.run_all on the same requests: "
+        f"{len(shapes)} exact-length batches {shapes} (size, iters), wall "
+        f"{secs_all:.3f} s, slot-steps {slot_all}, idle {idle_all} "
+        f"(continuous: {secs:.3f} s, {st['slot_steps']}, "
+        f"{st['idle_slot_steps']}; no gain claimed)")
+    log(f"[phase20] (a) seconds: the gated and profiled run {secs1:.1f} "
+        f"(the gates {g['seconds']:.1f}, the profiled segment "
+        f"{prof['seconds'] if prof else 0:.1f}), "
+        f"the plain run {secs:.1f}, the teacher-forced forwards "
+        f"{secs_tf:.1f}, the planted faults {t_faults:.1f}, run_all "
+        f"{secs_all:.1f}")
+    if not (once and same):
+        raise AssertionError(f"phase20 (a): every rid once {once}, two "
+                             f"runs identical {same}")
+    if hits < MIN_AGREE_SERVE_BF16 * total:
+        raise AssertionError(f"phase20 (a): teacher-forced agreement "
+                             f"{hits}/{total}")
+    if not serve20_gates_pass(g) or g["admissions"] != len(reqs):
+        raise AssertionError(f"phase20 (a): the layer gates fail: {g}")
+    for name, gf in faults.items():
+        if serve20_gates_pass(gf):
+            raise AssertionError(f"phase20 (a): the layer gates pass the "
+                                 f"planted fault '{name}': {gf}")
+    return dict(stats=without_wall(st), wall_s=secs, tokens=n_tok,
+                ms_per_token=secs / max(n_tok, 1) * 1e3,
+                tokens_per_s=n_tok / secs, agree=hits / max(total, 1),
+                gate=g, faults=faults, run_all_s=secs_all,
+                run_all_idle=idle_all, run_all_slot_steps=slot_all,
+                step_ms=prof["secs"] / max(steps, 1) * 1e3 if prof else None,
+                busy_ms=prof["busy"] / max(steps, 1) * 1e3 if prof else None,
+                idle_share=1 - prof["busy"] / prof["secs"] if prof else None)
+
+
+def phase20b(cfg, model, seed):
+    """gemma2-9b f32 at depth 2, full width: the exact gates, deadlines,
+    the chained dispatcher, and a kill and resume on fewer slots."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.resilience import (FaultPlan, PreemptionError,
+                                        RecoveryConfig)
+    from repro_torch.serve import ContinuousEngine, GenerateConfig, generate
+    reqs = serve20_requests(seed + 1, cfg, SERVE20_F32_REQUESTS,
+                            SERVE20_PROMPTS, SERVE20_BUDGETS)
+    gcfg = GenerateConfig(max_new_tokens=SERVE20_CAP, eos_id=1)
+    kw = dict(slots=SERVE20_SLOTS, segment=SERVE20_SEGMENT,
+              max_prompt_len=SERVE20_PROMPTS[1], cache_dtype=torch.float32)
+
+    def engine(**over):
+        return ContinuousEngine(cfg, model, gcfg, **dict(kw, **over))
+    seq, secs = serve_run(engine(), reqs)
+    toks = {rid: t for rid, t, _ in seq}
+    solo_equal = 0
+    for r in reqs:
+        out, L, _ = generate(cfg, model, r.prompt[None], dataclasses.replace(
+            gcfg, max_new_tokens=r.max_new_tokens),
+            cache_dtype=torch.float32)
+        solo_equal += out[0, :int(L[0])].tolist() == toks[r.rid]
+    hits, total = teacher_forced(cfg, model, reqs, seq)
+    chained, _ = serve_run(engine(), reqs, chained=True)
+    # deadlines on a counting clock: one shed at admission, one evicted
+    # mid-decode; the healthy requests' tokens as without them
+    ticks = [0]
+
+    def clock():
+        ticks[0] += 1
+        return float(ticks[0])
+    dl = [dataclasses.replace(r, deadline=d) for r, d in zip(
+        reqs[:5], (None, -1.0, 3.0, None, None))]
+    dl[2].max_new_tokens = SERVE20_CAP      # still decoding at its deadline
+    dl_seq, _ = serve_run(engine(), dl, clock=clock)
+    status = {rid: (len(t), s) for rid, t, s in dl_seq}
+    healthy = all(t == toks[rid] for rid, t, s in dl_seq if s == "ok")
+    deadlines_ok = (status[1] == (0, "timed_out")
+                    and status[2][1] == "timed_out"
+                    and 0 < status[2][0] < SERVE20_CAP
+                    and healthy and len(dl_seq) == 5)
+    # killed at segment 3, resumed from snapshot and journal on 3, then
+    # (from a copy of the same state) on 2 slots
+    resumed = {}
+    with tempfile.TemporaryDirectory(prefix="phase20b_") as tmp:
+        rec = RecoveryConfig(dir=f"{tmp}/run", snapshot_every=2,
+                             fsync=False, keep=1)
+        eng = engine()
+        killed, fired = [], False
+        try:
+            eng.run(list(reqs), lambda r, t, s: killed.append(r),
+                    recovery=rec, on_segment=FaultPlan(
+                        lanes=SERVE20_SLOTS, preempt_at_segment=3)
+                    .preempt_hook(mode="raise"))
+        except PreemptionError:
+            fired = True
+        del eng
+        for slots in (3, 2):
+            shutil.copytree(f"{tmp}/run", f"{tmp}/resume{slots}")
+            eng = engine(slots=slots)
+            got, _ = serve_run(eng, [], recovery=dataclasses.replace(
+                rec, dir=f"{tmp}/resume{slots}"), resume=True)
+            resumed[slots] = dict(
+                once=sorted(r for r, _, _ in got) == list(range(len(reqs))),
+                equal=all(t == toks[rid] for rid, t, _ in got),
+                replayed=eng.stats["replayed_items"],
+                recovered=eng.stats["recovered_occupants"],
+                seconds=eng.stats["recovery_seconds"])
+            del eng
+    torch.cuda.empty_cache()
+    log(f"[phase20] (b) {LM_ARCH} f32 depth 2: {len(reqs)} requests, "
+        f"prompts {sorted(len(r.prompt) for r in reqs)}: wall {secs:.3f} s; "
+        f"equal to each request's solo generate {solo_equal}/{len(reqs)}; "
+        f"teacher-forced argmax {hits}/{total}; chained = sync emissions "
+        f"{sorted(chained) == sorted(seq)} (in the same order "
+        f"{chained == seq}: a lagged admission may finish later); deadlines (rid 1 shed, rid 2 evicted at "
+        f"{status[2][0]} tokens, the rest as without) {deadlines_ok}; killed "
+        f"at segment 3 {fired} after {len(killed)} emissions, resumed on 3 / 2 "
+        f"slots: {resumed}")
+    ok = (solo_equal == len(reqs) and hits == total
+          and sorted(chained) == sorted(seq)
+          and deadlines_ok and fired and all(
+              r["once"] and r["equal"] and r["recovered"] > 0
+              for r in resumed.values()))
+    if not ok:
+        raise AssertionError("phase20 (b): an exact gate fails (see the "
+                             "line above)")
+    return dict(wall_s=secs, resumed=resumed, killed_emitted=len(killed))
+
+
+def phase20c(cfg, model, gen):
+    """gemma2-9b bf16: SERVE20_INT8_STEPS decode steps on the int8 cache
+    against the bf16 cache, teacher-forced on the same tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    B, P, N = 2, SERVE_PROMPT, SERVE20_INT8_STEPS
+    tokens = torch.randint(2, cfg.vocab_size, (B, P + N), generator=gen,
+                           device=DEVICE)
+    logits, gb = {}, {}
+    for quant in (False, True):
+        caches = T.init_cache(cfg, B, P + N, torch.bfloat16, quant=quant,
+                              device=DEVICE)
+        gb[quant] = sum(t.numel() * t.element_size() for c in caches
+                        for t in c.values()) / 1e9
+        rows = []
+        with torch.no_grad():
+            T.step_with_cache(cfg, model, caches, tokens[:, :P], 0)
+            for i in range(N):
+                lg, _ = T.decode_step(cfg, model, caches,
+                                      tokens[:, P + i:P + i + 1], P + i)
+                rows.append(lg[:, 0])
+        logits[quant] = torch.stack(rows, dim=1)
+        del caches
+        torch.cuda.empty_cache()
+    d = float((logits[True] - logits[False]).abs().max())
+    corr = min(float(np.corrcoef(a.cpu().numpy().ravel(),
+                                 b.cpu().numpy().ravel())[0, 1])
+               for a, b in zip(logits[True].unbind(1),
+                               logits[False].unbind(1)))
+    log(f"[phase20] (c) {LM_ARCH} bf16 int8 KV cache, B={B} x {P} + {N} "
+        f"decode steps against the bf16 cache: max|dlogits| {d:.4g} (limit "
+        f"{TOL_INT8_LOGITS}), least correlation {corr:.6f} (limit "
+        f"{MIN_INT8_CORR}); cache {gb[True]:.3f} GB int8 against "
+        f"{gb[False]:.3f} GB bf16 (ring layers stay bf16)")
+    if not (d < TOL_INT8_LOGITS and corr > MIN_INT8_CORR):
+        raise AssertionError(f"phase20 (c): int8 cache off the bf16 one: "
+                             f"{d!r}, {corr!r}")
+    return dict(max_dlogits=d, corr=corr, gb_int8=gb[True],
+                gb_bf16=gb[False])
+
+
+def phase20d(gen, seed):
+    """mamba2-130m bf16 at full width: ``Batcher.run_continuous`` falls back
+    to exact-length groups (an SSM has no pad mask), with run_all's
+    tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serve import Batcher, GenerateConfig, Request
+    cfg = get_config(SSM_ARCH)
+    model = lm_model(cfg, gen)
+    rng = np.random.default_rng(seed + 2)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        2, cfg.vocab_size, L).astype(np.int32),
+        max_new_tokens=int(rng.integers(SERVE20_BUDGETS[0],
+                                        SERVE20_BUDGETS[1] + 1)))
+        for i, L in enumerate(2 * list(SERVE20_SSM_LENS))]
+    gcfg = GenerateConfig(max_new_tokens=SERVE20_CAP, eos_id=1)
+    out = {}
+    for how in ("run_all", "run_continuous"):
+        b = Batcher(cfg, model, gcfg, max_batch=2,
+                    cache_dtype=torch.bfloat16)
+        for r in reqs:
+            b.submit(r)
+        res, secs = wall(getattr(b, how))
+        out[how] = ({r.rid: r.tokens.tolist() for r in res}, secs,
+                    len(getattr(b, "engines", ())))
+    del model
+    torch.cuda.empty_cache()
+    same = out["run_all"][0] == out["run_continuous"][0]
+    differ = sum(out["run_all"][0][r] != out["run_continuous"][0][r]
+                 for r in out["run_all"][0])
+    log(f"[phase20] (d) {SSM_ARCH} bf16: {len(reqs)} requests, prompts "
+        f"{list(SERVE20_SSM_LENS)} twice: run_continuous took "
+        f"{out['run_continuous'][2]} exact-length engines, "
+        f"{out['run_continuous'][1]:.3f} s; run_all {out['run_all'][1]:.3f} s;"
+        f" tokens equal {same} ({differ} requests differ)")
+    if not (same and out["run_continuous"][2] == len(SERVE20_SSM_LENS)):
+        raise AssertionError("phase20 (d): the exact-group fallback")
+    return dict(engines=out["run_continuous"][2],
+                s_continuous=out["run_continuous"][1],
+                s_run_all=out["run_all"][1])
+
+
+def phase20e(cfg, model, seed):
+    """Sampled decode (temperature 0.8) on 20(b)'s model: two runs
+    identical, a killed and resumed run equal to an uninterrupted one."""
+    import tempfile
+    import torch
+    from repro_torch.resilience import (FaultPlan, PreemptionError,
+                                        RecoveryConfig)
+    from repro_torch.serve import ContinuousEngine, GenerateConfig
+    reqs = serve20_requests(seed + 3, cfg, SERVE20_F32_REQUESTS,
+                            SERVE20_E_PROMPTS, SERVE20_BUDGETS)
+    gcfg = GenerateConfig(max_new_tokens=SERVE20_CAP, eos_id=1,
+                          temperature=0.8, seed=seed)
+
+    def engine(slots=SERVE20_SLOTS):
+        return ContinuousEngine(cfg, model, gcfg, slots=slots,
+                                segment=SERVE20_SEGMENT,
+                                cache_dtype=torch.float32)
+    a, _ = serve_run(engine(), reqs)
+    b, _ = serve_run(engine(), reqs)
+    fired = False
+    with tempfile.TemporaryDirectory(prefix="phase20e_") as tmp:
+        rec = RecoveryConfig(dir=tmp, snapshot_every=1, fsync=False, keep=1)
+        try:
+            serve_run(engine(), reqs, recovery=rec, on_segment=FaultPlan(
+                lanes=SERVE20_SLOTS, preempt_at_segment=3)
+                .preempt_hook(mode="raise"))
+        except PreemptionError:
+            fired = True
+        resumed, _ = serve_run(engine(2), [], recovery=rec, resume=True)
+    torch.cuda.empty_cache()
+    ok = a == b and fired and sorted(resumed) == sorted(a)
+    log(f"[phase20] (e) sampled decode, temperature 0.8, {LM_ARCH} f32 "
+        f"depth 2, {len(reqs)} requests: two runs identical {a == b}; "
+        f"killed at segment 3 {fired} and resumed on 2 slots equal to the "
+        f"uninterrupted run {sorted(resumed) == sorted(a)}")
+    if not ok:
+        raise AssertionError("phase20 (e): sampled decode not reproducible")
+    return dict(repeat=a == b, resumed=sorted(resumed) == sorted(a))
 
 
 # ---------------------------------------------------------------------------
@@ -4595,9 +5163,9 @@ def main(argv=None) -> int:
     rows5 = phase5_multistep(gen, SIZE, rate)
     rows5shard = phase5_shard(gen, rate)
     rows11, err11, by_hd11, fam11, slice11 = phase11(gen, rate)
-    zero_counts()                                # main path: 12-13, 17-19
-    r12, r13, r12f, r13f = lm_phases(gen)
-    by_phase_lm = {"12-13": dict(A.launch_counts)}
+    zero_counts()                            # main path: 12-13, 20, 17-19
+    r12, r13, r12f, r13f, r20 = lm_phases(gen, args.seed)
+    by_phase_lm = {"12-13, 20": dict(A.launch_counts)}
     for phase, fn in ((17, phase17), (18, phase18), (19, phase19)):
         before = dict(A.launch_counts)
         t0 = time.perf_counter()
@@ -4612,7 +5180,7 @@ def main(argv=None) -> int:
                + r17["b"]["fault"]["launches"]
                + r18["b"]["fault"]["launches"]
                + sum(r["fault"]["launches"] for r in r19.values()))
-    log(f"[main] swa_attention launches on the LM path (phases 12-13, "
+    log(f"[main] swa_attention launches on the LM path (phases 12-13, 20, "
         f"17-19) by route: {lm_launches} (bf16: wgmma at hd 64/128/256, "
         f"f32 and bf16 at hd 96: cuda_core), "
         f"by phase {by_phase_lm}; {planted} of them by the planted-fault "

@@ -8,8 +8,11 @@ self-attention may take the flash route, the hand-written kernel of
 condition; cross-attention never does.  Caches are written in place (the
 reference returns new arrays); each call returns the cache dict it wrote.
 
-Not in this slice: the int8 cache, the ragged ``kv_len`` mask and
-per-sequence ``cache_pos`` (ROADMAP.md A9).
+Cache positions are device tensors on the serving paths: a (B, 1)
+``cache_pos`` writes each sequence at its own depth (continuous batching),
+and a ragged prefill's ``kv_len`` masks the pad keys of right-padded
+prompts; neither is read on the host.  ``init_kv_cache(quant=True)`` gives
+the int8 cache (per-(token, kv-head) scales).
 """
 from __future__ import annotations
 
@@ -69,10 +72,12 @@ def _einsum(eq, a, b):
     return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
-def _mask_bias(q_pos, k_pos, *, causal: bool, window: int):
+def _mask_bias(q_pos, k_pos, *, causal: bool, window: int, kv_len=None):
     """Additive attention bias (B, Q, S) from position constraints: key j
     is visible to query i iff ``i - window < j <= i``; ring-buffer slots
-    marked -1 are empty and never visible."""
+    marked -1 are empty and never visible.  ``kv_len`` ((B,) or (B, 1)
+    int, a ragged prefill's prompt lengths): keys at positions >= the
+    sequence's own length are pads, invisible to every query."""
     qp = q_pos[:, :, None]                       # (B, Q, 1)
     kp = k_pos[:, None, :]                       # (B|1, 1, S)
     ok = kp >= 0
@@ -80,6 +85,8 @@ def _mask_bias(q_pos, k_pos, *, causal: bool, window: int):
         ok = ok & (kp <= qp)
     if window:
         ok = ok & (kp > qp - window)
+    if kv_len is not None:
+        ok = ok & (kp < kv_len.reshape(-1)[:, None, None])
     zero = torch.zeros((), dtype=torch.float32, device=ok.device)
     return torch.where(ok, zero, torch.full_like(zero, NEG_INF))
 
@@ -92,19 +99,18 @@ def attention(params: Attention, x, *, positions, num_heads, num_kv_heads,
 
     Train/prefill: ``kv_cache=None``; keys and values from ``x``, or from
     ``x_kv`` for cross-attention (no RoPE, no mask there).  Decode:
-    ``kv_cache={'k','v'}`` (B, S_cache, KH, hd), written at ``cache_pos``
-    (an int, or a (1, 1) or 0-d tensor: one position for the whole batch),
-    or a ring buffer ``{'k','v','pos'}`` of W slots for a sliding-window
-    layer.  A cross cache (precomputed from the encoder output) is
-    read-only."""
-    if kv_len is not None:
-        raise NotImplementedError(
-            "the ragged kv_len mask belongs to a later slice of the port "
-            "(ROADMAP.md A9)")
-    if kv_cache is not None and "k_scale" in kv_cache:
-        raise NotImplementedError(
-            "the int8 KV cache belongs to a later slice of the port "
-            "(ROADMAP.md A9)")
+    ``kv_cache={'k','v'}`` (B, S_cache, KH, hd), written at ``cache_pos``:
+    an int or a 0-d or (1, 1) tensor (one position for the whole batch), or
+    a (B, 1) tensor (each sequence at its own depth); the int8 cache
+    ``{'k','v','k_scale','v_scale'}`` is written quantised and read
+    dequantised; a ring buffer ``{'k','v','pos'}`` of W slots serves a
+    sliding-window layer.  A cross cache (precomputed from the encoder
+    output) is read-only.
+
+    ``kv_len`` ((B,) int, a ragged prefill of right-padded prompts): pad
+    keys are masked out of every window, and a ring keeps each sequence's
+    own last ``min(W, len)`` real keys.  A full cache may keep pad rows:
+    decode overwrites row ``len + t - 1`` before any query reaches it."""
     B, S, D = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, params.wq)
     if qk_norm:
@@ -130,22 +136,34 @@ def attention(params: Attention, x, *, positions, num_heads, num_kv_heads,
             k = apply_rope(k, positions, rope_theta)
             q = apply_rope(q, positions, rope_theta)
         k_pos = positions
-        if kv_cache is not None:
-            pos0 = _uniform_pos(cache_pos)
-            if "pos" in kv_cache:
-                # ring buffer (sliding-window layers): slot = position mod W
-                new_cache = _ring_write(kv_cache, k, v, positions)
-                if S == 1:
-                    k, v, k_pos = (kv_cache["k"], kv_cache["v"],
-                                   kv_cache["pos"])
-                # a prefill chunk attends its OWN keys (the ring keeps
-                # only the last W); single-chunk prefill from position 0
-                # is the engine's contract
-            else:
-                k = _scatter_cache(kv_cache["k"], k, pos0)
-                v = _scatter_cache(kv_cache["v"], v, pos0)
-                new_cache = kv_cache
-                k_pos = torch.arange(k.shape[1], device=x.device)[None, :]
+        if kv_cache is not None and "pos" in kv_cache:
+            # ring buffer (sliding-window layers): slot = position mod W
+            ragged = isinstance(cache_pos, torch.Tensor) and \
+                cache_pos.numel() > 1
+            new_cache = _ring_write(kv_cache, k, v, positions,
+                                    ragged=ragged,
+                                    kv_len=kv_len if S > 1 else None)
+            if S == 1:
+                k, v, k_pos = kv_cache["k"], kv_cache["v"], kv_cache["pos"]
+            # a prefill chunk attends its OWN keys (the ring keeps only
+            # the last W); single-chunk prefill from position 0 is the
+            # engine's contract
+        elif kv_cache is not None and "k_scale" in kv_cache:
+            # int8 cache: write quantised, read dequantised
+            qk, sk = _quantize_kv(k)
+            qv, sv = _quantize_kv(v)
+            for key, new in (("k", qk), ("v", qv), ("k_scale", sk),
+                             ("v_scale", sv)):
+                _scatter_cache(kv_cache[key], new, cache_pos)
+            new_cache = kv_cache
+            k = _dequantize_kv(kv_cache["k"], kv_cache["k_scale"], x.dtype)
+            v = _dequantize_kv(kv_cache["v"], kv_cache["v_scale"], x.dtype)
+            k_pos = torch.arange(k.shape[1], device=x.device)[None, :]
+        elif kv_cache is not None:
+            k = _scatter_cache(kv_cache["k"], k, cache_pos)
+            v = _scatter_cache(kv_cache["v"], v, cache_pos)
+            new_cache = kv_cache
+            k_pos = torch.arange(k.shape[1], device=x.device)[None, :]
 
     if (_flash_enabled(x.device) and kv_cache is None and not is_cross
             and causal and S % 128 == 0 and not qk_norm and kv_len is None):
@@ -167,7 +185,8 @@ def attention(params: Attention, x, *, positions, num_heads, num_kv_heads,
     if attn_softcap:
         scores = softcap(scores, attn_softcap)
     bias = _mask_bias(positions, k_pos, causal=causal and not is_cross,
-                      window=0 if is_cross else window)
+                      window=0 if is_cross else window,
+                      kv_len=None if is_cross else kv_len)
     scores = scores + bias[:, None, None]            # (B,1,1,Q,S)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     del scores
@@ -176,25 +195,52 @@ def attention(params: Attention, x, *, positions, num_heads, num_kv_heads,
     return _einsum("bqhk,hkd->bqd", out, params.wo), new_cache
 
 
-def _uniform_pos(cache_pos) -> int:
-    """The one write position of a uniform batch (an int, or a 0-d or
-    (1, 1) tensor); per-sequence positions raise."""
-    if isinstance(cache_pos, torch.Tensor):
-        if cache_pos.numel() != 1:
-            raise NotImplementedError(
-                "per-sequence cache positions (continuous batching) belong "
-                "to a later slice of the port (ROADMAP.md A9)")
-        return int(cache_pos.reshape(()))
-    return int(cache_pos)
-
-
-def _ring_write(cache, k, v, positions):
+def _ring_write(cache, k, v, positions, ragged: bool = False, kv_len=None):
     """Write S_new keys into the W-slot ring at slots ``pos mod W``, in
     place.  Keys are stored post-RoPE, so the ring only remembers each
     slot's absolute position for masking (-1 = empty).  When S_new ≥ W
-    only the last W entries survive."""
+    only the last W entries survive.
+
+    ``ragged`` (continuous batching, S_new == 1): each sequence writes its
+    own slot.  ``kv_len`` (a ragged prefill, S_new > 1): each sequence
+    keeps only its own real keys at positions in ``[len - W, len)``; the
+    reference sends the other rows to slot W, out of bounds, where the
+    write drops them.  Here each slot gathers the one row, if any, that
+    lands on it, so nothing is written past the ring and no two rows race
+    for a slot."""
     W = cache["k"].shape[1]
-    S_new = k.shape[1]
+    B, S_new = k.shape[:2]
+    if kv_len is not None and S_new > 1:
+        pp = positions.expand(B, S_new).to(torch.int64)
+        L = kv_len.reshape(-1, 1).to(torch.int64)
+        valid = (pp < L) & (pp >= L - W)
+        # the chunk row that lands on each slot, -1 where none does
+        src = torch.full((B, W), -1, dtype=torch.int64, device=k.device)
+        rows = torch.arange(S_new, device=k.device).expand(B, S_new)
+        src.scatter_reduce_(1, pp % W, torch.where(valid, rows, -1),
+                            reduce="amax")
+        hit = src >= 0
+        take = src.clamp(min=0)
+        for key, new in (("k", k), ("v", v)):
+            got = new.to(cache[key].dtype).gather(
+                1, take[:, :, None, None].expand(-1, -1, *new.shape[2:]))
+            cache[key].copy_(torch.where(hit[:, :, None, None], got,
+                                         cache[key]))
+        cache["pos"].copy_(torch.where(hit, pp.gather(1, take).to(
+            torch.int32), cache["pos"]))
+        return cache
+    if ragged:
+        if S_new != 1:
+            raise ValueError(
+                "per-sequence ring writes are decode-only (S_new == 1); "
+                "continuous prefill stages one sequence at a time")
+        pos = positions[:, 0]                             # (B,)
+        rows = torch.arange(B, device=k.device)
+        idx = pos % W
+        cache["k"][rows, idx] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, idx] = v[:, 0].to(cache["v"].dtype)
+        cache["pos"][rows, idx] = pos.to(torch.int32)
+        return cache
     pos_row = positions[0]                        # uniform across batch
     if S_new >= W:
         keep = slice(S_new - W, S_new)
@@ -206,26 +252,64 @@ def _ring_write(cache, k, v, positions):
     return cache
 
 
-def _scatter_cache(cache, new, pos0: int):
-    """Write (B, S_new, KH, hd) at row ``pos0`` of the cache, in place; the
-    start is clamped so the rows fit, as ``dynamic_update_slice`` does."""
-    S_new = new.shape[1]
-    start = min(max(pos0, 0), cache.shape[1] - S_new)
-    cache[:, start:start + S_new] = new.to(cache.dtype)
+def _scatter_cache(cache, new, cache_pos):
+    """Write (B, S_new, ...) at row ``cache_pos`` of the cache, in place.
+    ``cache_pos`` is an int, a (1, 1) tensor (one row for the whole batch)
+    or a (B, 1) tensor (each sequence its own row).  Each start is placed
+    as ``dynamic_update_slice`` places it: a negative start counts from the
+    end, then the start is clamped so the rows fit.  A tensor start stays
+    on the device."""
+    S_new, S = new.shape[1], cache.shape[1]
+    hi = S - S_new
+    if not isinstance(cache_pos, torch.Tensor):
+        start = int(cache_pos)
+        start = min(max(start + S if start < 0 else start, 0), hi)
+        cache[:, start:start + S_new] = new.to(cache.dtype)
+        return cache
+    B = cache.shape[0]
+    start = cache_pos.reshape(-1, 1).to(torch.int64)
+    start = torch.where(start < 0, start + S, start).clamp(0, hi)
+    idx = (start + torch.arange(S_new, device=cache.device)).expand(B, S_new)
+    rows = torch.arange(B, device=cache.device)[:, None]
+    cache[rows, idx] = new.to(cache.dtype).expand(B, *new.shape[1:])
     return cache
 
 
 def init_kv_cache(batch, max_seq, num_kv_heads, head_dim,
-                  dtype=torch.bfloat16, window: int = 0, *, device):
+                  dtype=torch.bfloat16, window: int = 0, quant: bool = False,
+                  *, device):
     """Decode cache.  Sliding-window layers with ``window < max_seq`` get a
     ring buffer of W slots plus a per-slot absolute-position array
-    (-1 = empty)."""
+    (-1 = empty).  ``quant=True``: int8 ``k``/``v`` with float32
+    per-(token, kv-head) scales ``k_scale``/``v_scale`` (B, S, KH); ring
+    layers keep the model dtype."""
     if window and window < max_seq:
         z = torch.zeros((batch, window, num_kv_heads, head_dim), dtype=dtype,
                         device=device)
         return {"k": z, "v": torch.zeros_like(z),
                 "pos": torch.full((batch, window), -1, dtype=torch.int32,
                                   device=device)}
+    if quant:
+        z = torch.zeros((batch, max_seq, num_kv_heads, head_dim),
+                        dtype=torch.int8, device=device)
+        s = torch.zeros((batch, max_seq, num_kv_heads), dtype=torch.float32,
+                        device=device)
+        return {"k": z, "v": torch.zeros_like(z), "k_scale": s,
+                "v_scale": torch.zeros_like(s)}
     z = torch.zeros((batch, max_seq, num_kv_heads, head_dim), dtype=dtype,
                     device=device)
     return {"k": z, "v": torch.zeros_like(z)}
+
+
+def _quantize_kv(x):
+    """Symmetric int8 per (token, head): returns (q, scale).  The scale
+    floor is 1e-10; ``torch.round`` rounds half to even, as ``jnp.round``
+    does."""
+    xf = x.float()
+    scale = (xf.abs().amax(dim=-1) / 127.0).clamp_min(1e-10)
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequantize_kv(q, scale, dtype):
+    return (q.float() * scale[..., None]).to(dtype)

@@ -16,7 +16,7 @@ Entry points (``device=None`` is the CUDA card; the CPU only when asked):
     init_params(cfg, seed=0, max_position=0, device=None) — random weights
     forward(cfg, params, batch, device=None)         — (logits, aux)
     encode(cfg, params, frames, device=None)         — the encoder's output
-    init_cache(cfg, batch, max_seq, device=None)     — per-layer KV / SSM caches
+    init_cache(cfg, batch, max_seq, quant=False, device=None) — per-layer caches
     prefill_cross_caches(cfg, params, enc_out)       — read-only cross K/V
     step_with_cache / decode_step                    — serving steps
 
@@ -209,12 +209,14 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, max_position: int = 0,
 
 def apply_layer(cfg: ArchConfig, spec: LayerSpec, p: Layer, x, *,
                 positions, causal=True, cache=None, cache_pos=None,
-                enc_out=None, cross_cache=None):
+                enc_out=None, cross_cache=None, kv_len=None):
     """One block: attention or SSM, then for a cross layer attention over
     ``enc_out`` (or its read-only ``cross_cache``), then the FFN (dense,
     MoE or none), pre-norm residual (post-norms when the config has them).
     Under a cache the MoE dispatches dropless, as the reference's serving
-    path.  Returns (x, cache, aux); aux is empty without a MoE."""
+    path.  ``kv_len`` is a ragged prefill's prompt-length mask
+    (self-attention only).  Returns (x, cache, aux); aux is empty without
+    a MoE."""
     aux = {}
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if spec.kind == "attn":
@@ -224,7 +226,8 @@ def apply_layer(cfg: ArchConfig, spec: LayerSpec, p: Layer, x, *,
             rope_theta=cfg.rope_theta if cfg.use_rope else 0.0,
             causal=causal, window=spec.window,
             attn_softcap=cfg.attn_softcap, qk_norm=cfg.qk_norm,
-            norm_eps=cfg.norm_eps, kv_cache=cache, cache_pos=cache_pos)
+            norm_eps=cfg.norm_eps, kv_cache=cache, cache_pos=cache_pos,
+            kv_len=kv_len)
     else:
         out, new_cache = ssm_mod.mamba2_block(
             p.ssm, h, dims=ssm_dims(cfg), norm_eps=cfg.norm_eps,
@@ -271,12 +274,13 @@ def _acc_aux(acc: dict, aux: dict) -> dict:
 
 def run_stack(cfg: ArchConfig, stack, x, *, positions, causal=True,
               caches=None, cache_pos=None, enc_out=None, cross_caches=None,
-              pattern=None):
+              pattern=None, kv_len=None):
     """Apply every layer of ``stack`` (a module with ``specs`` and
     ``layers``: the model, or its :class:`Encoder` with ``pattern=
     encoder_pattern(cfg)``) in run order.  ``caches`` and ``cross_caches``
-    are per-layer lists (or None); ``enc_out`` goes to every layer and the
-    cross caches to the unit's layers only, as the reference passes them.
+    are per-layer lists (or None); ``enc_out`` and ``kv_len`` go to every
+    layer and the cross caches to the unit's layers only, as the reference
+    passes them.
     Returns (x, caches, aux): aux summed as the reference sums it, the
     prefix's layers in turn, then each rep's unit layers from zero, then
     the reps' sums."""
@@ -291,7 +295,8 @@ def run_stack(cfg: ArchConfig, stack, x, *, positions, causal=True,
             else None
         x, nc, aux = apply_layer(cfg, spec, p, x, positions=positions,
                                  causal=causal, cache=c, cache_pos=cache_pos,
-                                 enc_out=enc_out, cross_cache=xc)
+                                 enc_out=enc_out, cross_cache=xc,
+                                 kv_len=kv_len)
         new_caches.append(nc)
         if i < n_pre:
             aux_sum = _acc_aux(aux_sum, aux)
@@ -334,12 +339,15 @@ def encode(cfg: ArchConfig, params: Transformer, frames, *, device=None):
 
 
 def embed_inputs(cfg: ArchConfig, params: Transformer, tokens,
-                 pos_offset: int = 0, *, patch_embeds=None):
+                 pos_offset=0, *, patch_embeds=None):
     """Token embedding (× √D rounded to the model dtype when the config
     scales it), the projected patch embeddings before the text (cast to the
     model dtype first), the absolute position rows from ``pos_offset``
     (the start clamped so the rows fit the table, as
-    ``dynamic_slice_in_dim`` clamps it), and the (B, S) positions."""
+    ``dynamic_slice_in_dim`` clamps it), and the (B, S) positions.
+    ``pos_offset`` is an int, a 0-d tensor, or a (B, 1) tensor of
+    per-sequence offsets (no position table then); a tensor stays on the
+    device."""
     x = params.embed[tokens]
     if cfg.embed_scale:
         # √D rounded to the model dtype on the host (no device copy)
@@ -355,8 +363,13 @@ def embed_inputs(cfg: ArchConfig, params: Transformer, tokens,
         if S > rows:
             raise ValueError(f"{S} positions do not fit the {rows}-row "
                              "position table")
-        start = min(max(pos_offset, 0), rows - S)
-        x = x + params.pos_embed[start:start + S][None]
+        if isinstance(pos_offset, torch.Tensor):
+            start = pos_offset.reshape(()).clamp(0, rows - S)
+            x = x + params.pos_embed[start + torch.arange(
+                S, device=x.device)][None]
+        else:
+            start = min(max(pos_offset, 0), rows - S)
+            x = x + params.pos_embed[start:start + S][None]
     return x, positions
 
 
@@ -409,23 +422,26 @@ def forward(cfg: ArchConfig, params: Transformer, batch: dict, *,
 # -- serving ----------------------------------------------------------------
 
 def init_layer_cache(cfg: ArchConfig, spec: LayerSpec, batch: int,
-                     max_seq: int, dtype=torch.bfloat16, *, device):
+                     max_seq: int, dtype=torch.bfloat16, quant: bool = False,
+                     *, device):
     if spec.kind == "attn":
         return init_kv_cache(batch, max_seq, cfg.num_kv_heads,
                              cfg.resolved_head_dim, dtype,
-                             window=spec.window, device=device)
+                             window=spec.window, quant=quant, device=device)
     return ssm_mod.init_ssm_cache(batch, ssm_dims(cfg), dtype, device=device)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
-               dtype=torch.bfloat16, *, device=None) -> list:
+               dtype=torch.bfloat16, quant: bool = False, *,
+               device=None) -> list:
     """Decode caches for the whole decoder stack, one dict per layer in run
     order: KV caches for attention layers (ring buffers where the window <
-    max_seq), ``{"conv", "h"}`` for SSM layers.  Cross caches come from
-    :func:`prefill_cross_caches`."""
+    max_seq; int8 with ``quant``), ``{"conv", "h"}`` for SSM layers.
+    Cross caches come from :func:`prefill_cross_caches`."""
     check_family(cfg)
     dev = resolve_device(device)
-    return [init_layer_cache(cfg, s, batch, max_seq, dtype, device=dev)
+    return [init_layer_cache(cfg, s, batch, max_seq, dtype, quant,
+                             device=dev)
             for s in layer_specs(cfg)]
 
 
@@ -441,24 +457,28 @@ def prefill_cross_caches(cfg: ArchConfig, params: Transformer, enc_out):
 
 
 def step_with_cache(cfg: ArchConfig, params: Transformer, caches, tokens,
-                    pos: int, patch_embeds=None, enc_out=None,
-                    cross_caches=None):
+                    pos, patch_embeds=None, enc_out=None,
+                    cross_caches=None, prompt_len=None):
     """Forward S tokens (S=1 decode, S>1 prefill) writing the caches at
-    ``pos`` (one position for the whole batch), with the vision stub's
-    ``patch_embeds`` before the text and an encoder-decoder's ``enc_out``
-    and ``cross_caches`` (in the model dtype).  Returns (logits, caches);
-    the caches are written in place."""
-    if isinstance(pos, torch.Tensor):
-        if pos.ndim != 0:
-            if cfg.abs_pos_embed:
-                raise ValueError(
-                    "per-sequence positions are not supported with absolute "
-                    "position embeddings (the pos_embed table is indexed by "
-                    "a uniform batch offset); use a scalar pos")
-            raise NotImplementedError(
-                "per-sequence positions (continuous batching) belong to a "
-                "later slice of the port (ROADMAP.md A9)")
-        pos = int(pos)
+    ``pos``, with the vision stub's ``patch_embeds`` before the text and an
+    encoder-decoder's ``enc_out`` and ``cross_caches`` (in the model
+    dtype).  Returns (logits, caches); the caches are written in place.
+
+    ``pos`` is an int or a 0-d tensor (every sequence at the same depth),
+    or a (B, 1) int tensor of per-sequence depths (continuous batching:
+    positions, RoPE, the masks and the cache writes follow each sequence;
+    not with absolute position embeddings).  A tensor ``pos`` stays on the
+    device.  ``prompt_len`` ((B,) int tensor, a prefill of right-padded
+    ragged prompts): pad keys are masked out of the attention windows and
+    never enter ring caches; read the next token from ``logits[b,
+    prompt_len[b] - 1]``.  Attention-only stacks (an SSM state update has
+    no pad mask; the serve engine guards this)."""
+    tensor_pos = isinstance(pos, torch.Tensor)
+    if tensor_pos and pos.ndim != 0 and cfg.abs_pos_embed:
+        raise ValueError(
+            "per-sequence positions are not supported with absolute "
+            "position embeddings (the pos_embed table is indexed by a "
+            "uniform batch offset); use a scalar pos")
     if enc_out is not None:
         check_dtype(cfg, "enc_out", enc_out)
     for c in cross_caches or ():
@@ -467,14 +487,18 @@ def step_with_cache(cfg: ArchConfig, params: Transformer, caches, tokens,
             check_dtype(cfg, "a cross cache", c["v"])
     x, positions = embed_inputs(cfg, params, tokens, pos,
                                 patch_embeds=patch_embeds)
+    cache_pos = pos.reshape(-1, 1) if tensor_pos else pos
     x, new_caches, _ = run_stack(cfg, params, x, positions=positions,
-                                 causal=True, caches=caches, cache_pos=pos,
-                                 enc_out=enc_out, cross_caches=cross_caches)
+                                 causal=True, caches=caches,
+                                 cache_pos=cache_pos, enc_out=enc_out,
+                                 cross_caches=cross_caches,
+                                 kv_len=prompt_len)
     return lm_head(cfg, params, x), new_caches
 
 
 def decode_step(cfg: ArchConfig, params: Transformer, caches, tokens,
-                pos: int, enc_out=None, cross_caches=None):
-    """One serving step: ``tokens`` (B, 1) at absolute position ``pos``."""
+                pos, enc_out=None, cross_caches=None):
+    """One serving step: ``tokens`` (B, 1) at absolute position ``pos``
+    (an int, a 0-d tensor or a (B, 1) tensor)."""
     return step_with_cache(cfg, params, caches, tokens, pos,
                            enc_out=enc_out, cross_caches=cross_caches)

@@ -1,5 +1,9 @@
-"""Serving engine of the port: greedy generation on the port's
-Loop-of-stencil-reduce (-s variant)."""
-from .engine import GenerateConfig, generate, prefill
+"""Serving tier of the port: greedy and sampled generation on the port's
+Loop-of-stencil-reduce (-s variant), continuous batching and the
+request batcher."""
+from .batcher import Batcher, Request, Result
+from .engine import (ContinuousEngine, GenerateConfig, generate, prefill,
+                     request_budget)
 
-__all__ = ["GenerateConfig", "generate", "prefill"]
+__all__ = ["Batcher", "ContinuousEngine", "GenerateConfig", "Request",
+           "Result", "generate", "prefill", "request_budget"]

@@ -999,3 +999,121 @@ def test_cuda_kernel_route_refuses_gradients(cuda_f32):
         TA.set_flash_swa(None)
     logits.logsumexp(dim=-1).mean().backward()
     assert wq.grad is not None and float(wq.grad.abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the serve tier: per-sequence cache writes and the int8 cache on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S_new,lens", [(1, None), (5, [5, 3, 1]),
+                                        (13, [13, 9, 4])])
+def test_cuda_per_sequence_ring_write_matches_the_cpu(cuda, S_new, lens):
+    """A ring write on the card (per-sequence decode, or a ragged prefill
+    under ``kv_len``, ``S_new`` past the window too) writes what it writes
+    on the CPU, exactly."""
+    from repro_torch.models import attention as TA
+    rng = np.random.default_rng(30)
+    B, W = 3, 8
+    cache = {"k": rng.normal(size=(B, W, 2, 4)).astype(np.float32),
+             "v": rng.normal(size=(B, W, 2, 4)).astype(np.float32),
+             "pos": rng.integers(-1, 40, (B, W)).astype(np.int32)}
+    k = rng.normal(size=(B, S_new, 2, 4)).astype(np.float32)
+    v = rng.normal(size=(B, S_new, 2, 4)).astype(np.float32)
+    if lens is None:
+        positions, kw = np.asarray([[3], [17], [8]]), dict(ragged=True)
+    else:
+        positions = np.broadcast_to(np.arange(S_new), (B, S_new))
+        kw = dict(kv_len=np.asarray(lens, np.int32))
+    out = []
+    for dev in ("cpu", cuda):
+        def on(a):
+            return torch.as_tensor(np.array(a), device=dev)
+        got = TA._ring_write({key: on(val) for key, val in cache.items()},
+                             on(k), on(v), on(positions),
+                             **{key: (on(val) if key == "kv_len" else val)
+                                for key, val in kw.items()})
+        out.append({key: val.cpu() for key, val in got.items()})
+    for key in out[0]:
+        assert torch.equal(out[0][key], out[1][key]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pos", [[[2], [0], [9], [-4]], [[5]]])
+def test_cuda_per_row_scatter_matches_the_cpu(cuda, pos):
+    from repro_torch.models import attention as TA
+    rng = np.random.default_rng(31)
+    cache = rng.normal(size=(4, 10, 2, 3)).astype(np.float32)
+    new = rng.normal(size=(4, 3, 2, 3)).astype(np.float32)
+    got = [TA._scatter_cache(torch.as_tensor(cache, device=dev),
+                             torch.as_tensor(new, device=dev),
+                             torch.tensor(pos, device=dev)).cpu()
+           for dev in ("cpu", cuda)]
+    assert torch.equal(got[0], got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_int8_round_trip_matches_the_cpu(cuda, dtype):
+    """Quantise and dequantise on the card: the CPU's scales within one
+    float32 rounding and its int8 values but at rounding ties, where a
+    scale one bit apart moves a value by one step (the card divides by the
+    host constant 127 as a multiply by its reciprocal); the round trip
+    within half a quantisation step."""
+    from repro_torch.models import attention as TA
+    x = torch.as_tensor(np.random.default_rng(32).normal(
+        size=(2, 64, 8, 256)).astype(np.float32) * 3).to(dtype)
+    qc, sc = TA._quantize_kv(x)
+    qg, sg = TA._quantize_kv(x.to(cuda))
+    torch.testing.assert_close(sg.cpu(), sc, rtol=2e-7, atol=0)
+    dq = (qg.cpu().int() - qc.int()).abs()
+    assert int(dq.max()) <= 1 and float((dq > 0).float().mean()) < 1e-3
+    back = TA._dequantize_kv(qg, sg, torch.float32)
+    assert float((back.cpu() - x.float()).abs().max()
+                 / x.float().abs().max()) < 0.01
+
+
+@pytest.mark.cuda
+def test_cuda_divides_by_a_host_constant_as_by_its_reciprocal(cuda):
+    """Why the card's int8 scales may sit one bit from the CPU's: PyTorch on
+    the card divides a float32 tensor by a host constant as a multiply by
+    its reciprocal, the CPU divides.  Prints the share that differs."""
+    a = torch.as_tensor(np.random.default_rng(34).normal(
+        size=1 << 20).astype(np.float32)).abs() * 5
+    card = (a.to(cuda) / 127.0).cpu()
+    differ = int((card != a / 127.0).sum())
+    print(f"card / 127 differs from the CPU's on {differ} of {a.numel()}")
+    assert torch.equal(card, a * (1.0 / 127.0)) and differ > 0
+
+
+@pytest.mark.cuda
+def test_cuda_continuous_engine_matches_solo_generate(cuda_f32):
+    """Ragged requests through a ContinuousEngine on the card (reduced
+    gemma2-9b, float32: rings wrap): each equals its solo greedy
+    ``generate``, and a sampled run repeats exactly."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as TT
+    from repro_torch.serve import (ContinuousEngine, GenerateConfig, Request,
+                                   generate)
+    cfg = get_reduced("gemma2-9b")
+    model = TT.init_params(cfg, seed=0, device=cuda_f32)
+    rng = np.random.default_rng(33)
+    reqs = [Request(rid=i, prompt=np.asarray(rng.integers(
+        2, cfg.vocab_size, L), np.int32), max_new_tokens=b)
+        for i, (L, b) in enumerate(zip([3, 12, 5, 9, 14], [2, 7, 3, 7, 4]))]
+
+    def serve(temperature):
+        got = {}
+        eng = ContinuousEngine(cfg, model, GenerateConfig(
+            max_new_tokens=7, temperature=temperature), slots=2,
+            cache_dtype=torch.float32, segment=3)
+        eng.run(reqs, lambda rid, t, s: got.__setitem__(rid, t.tolist()))
+        return got
+
+    got = serve(0.0)
+    for r in reqs:
+        solo, L, _ = generate(cfg, model, r.prompt[None], GenerateConfig(
+            max_new_tokens=r.max_new_tokens), cache_dtype=torch.float32)
+        assert got[r.rid] == solo[0, :int(L[0])].tolist()
+    assert serve(0.7) == serve(0.7)

@@ -176,21 +176,41 @@ def test_flash_flag_default_takes_the_kernel_only_on_the_card():
 
 
 def test_attention_refuses_later_slices():
-    a = TA.Attention(64, 4, 2, 16, device="cpu", dtype=torch.float32)
-    x = torch.zeros(1, 4, 64)
-    pos = torch.arange(4)[None]
+    """The A9 paths run now (the ragged mask, per-sequence cache positions,
+    the int8 cache); what stays refused is a per-sequence ring write of
+    more than one key (continuous prefill stages one sequence at a
+    time)."""
+    a = TA.Attention(64, 4, 2, 16, device="cpu", dtype=torch.float32,
+                     generator=torch.Generator().manual_seed(0))
+    x = torch.randn((2, 4, 64), generator=torch.Generator().manual_seed(1))
+    pos = torch.arange(4)[None].expand(2, 4)
     kw = dict(positions=pos, num_heads=4, num_kv_heads=2, head_dim=16)
-    out, cache = TA.attention(a, x, x_kv=x, **kw)      # cross: no refusal
+    out, cache = TA.attention(a, x, x_kv=x, **kw)      # cross
     assert out.shape == x.shape and cache is None
-    with pytest.raises(NotImplementedError, match="A9"):
-        TA.attention(a, x, kv_len=torch.tensor([4]), **kw)
+    plain, _ = TA.attention(a, x, **kw)
+    full, _ = TA.attention(a, x, kv_len=torch.tensor([4, 4]), **kw)
+    torch.testing.assert_close(full, plain, rtol=0, atol=0)
+    short, _ = TA.attention(a, x, kv_len=torch.tensor([4, 2]), **kw)
+    torch.testing.assert_close(short[1, :2], plain[1, :2], rtol=0,
+                               atol=1e-6)               # causal: unchanged
     cache = TA.init_kv_cache(2, 8, 2, 16, torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        TA.attention(a, torch.zeros(2, 1, 64), kv_cache=cache,
+    step = dict(kw, positions=torch.tensor([[3], [5]]))
+    TA.attention(a, x[:, :1], kv_cache=cache,
+                 cache_pos=torch.tensor([[3], [5]]), **step)
+    written = cache["k"].abs().sum(dim=(2, 3)) > 0
+    assert written.tolist() == [[i == 3 for i in range(8)],
+                                [i == 5 for i in range(8)]]
+    ring = TA.init_kv_cache(2, 16, 2, 16, torch.float32, window=8,
+                            device="cpu")
+    with pytest.raises(ValueError, match="decode-only"):
+        TA.attention(a, x[:, :2], kv_cache=ring,
                      cache_pos=torch.tensor([[3], [4]]),
-                     **dict(kw, positions=torch.tensor([[3], [4]])))
-    with pytest.raises(NotImplementedError, match="A9"):
-        TA.attention(a, x, kv_cache={"k_scale": 1}, cache_pos=0, **kw)
+                     **dict(kw, positions=torch.tensor([[3, 4], [4, 5]])),
+                     window=8)
+    q = TA.init_kv_cache(2, 8, 2, 16, torch.float32, quant=True,
+                         device="cpu")
+    out, q = TA.attention(a, x, kv_cache=q, cache_pos=0, **kw)
+    assert q["k"].dtype == torch.int8 and out.shape == x.shape
 
 
 # ---------------------------------------------------------------------------

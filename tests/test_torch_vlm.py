@@ -173,11 +173,17 @@ def test_greedy_equals_teacher_forced_argmax(vlm, rng):
 
 
 def test_per_sequence_pos_names_its_roadmap_item(vlm):
-    _, _, model, _ = vlm
-    with pytest.raises(NotImplementedError, match="A9"):
-        TT.step_with_cache(port_reduced(ARCH), model, None,
-                           torch.zeros((B, 1), dtype=torch.long),
-                           torch.tensor([[3], [4]]))
+    """Per-sequence positions (ROADMAP.md A9.1) run on the vision stub's
+    decoder too: a (B, 1) ``pos`` without caches gives the reference's
+    logits (RoPE at each row's own position)."""
+    cfg, params, model, _ = vlm
+    tok = np.asarray([[5], [7]])
+    pos = np.asarray([[3], [4]], np.int32)
+    want, _ = JT.step_with_cache(cfg, params, None, jnp.asarray(tok),
+                                 jnp.asarray(pos))
+    got, _ = TT.step_with_cache(port_reduced(ARCH), model, None,
+                                torch.as_tensor(tok), torch.as_tensor(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
 def test_interop_carries_the_vision_projection(vlm):
