@@ -188,10 +188,11 @@ phi-3-vision-4.2b) — on one CUDA card at full size:
      gates; greedy serving B=2 x (576 + 448) + 32 in bf16 and (exact) in
      f32 at depth 2; then the ``kernels`` line;
  20. the serve tier, run inside phases 12-13 on their models: (a)
-     gemma2-9b bf16 at full width and depth through ``ContinuousEngine``
-     (4 slots, segment 8, the pool bound at 4576: max_seq 4608 > the
-     4096 window, so the 21 local layers' ring caches take ragged
-     prefills), 12 requests from ``--seed`` (prompts 512-4576, budgets
+     gemma2-9b bf16 at full width through ``ContinuousEngine`` on the
+     first 22 of the 42 layers of phases 12-13's model (cut for the
+     script's time; 4 slots, segment 8, the pool bound at 4576: max_seq
+     4608 > the 4096 window, so the 11 local layers' ring caches take
+     ragged prefills), 12 requests from ``--seed`` (prompts 512-4576, budgets
      4-32): every rid once, two runs identical (tokens, order, stats),
      the tokens against the argmax of unpadded B=1 forwards on >= 0.95
      of positions, and after each admission a layer gate against a solo
@@ -211,6 +212,35 @@ phi-3-vision-4.2b) — on one CUDA card at full size:
      exact-length groups with ``run_all``'s tokens; (e) sampled decode
      at temperature 0.8 on (b)'s model: two runs identical, a killed and
      resumed run equal to the uninterrupted one;
+ 21. training (after phase 19): (a) qwen3-1.7b bf16 at full width and
+     depth (28 layers, remat on), 12 Trainer.run steps on SyntheticLM at
+     global batch 8 x 2048 (accum 4) with the cosine schedule, the last
+     under the profiler: step time, tokens/s, peak memory, the traced
+     step's busy share, the share of the bf16 dense peak from counted
+     FLOPs; the loss must fall, every gradient be finite and no step
+     launch swa_attention (the training step runs the einsum route, as
+     the reference trains); (d) the trained weights' lm_loss on held-out
+     sequences under no_grad, which launches no kernel either (QK-norm
+     keeps qwen3 on the einsum route in both packages); then gemma2-9b at
+     full width and depth 2 trained 4 steps and evaluated through the
+     port's forward and lm_loss on 1 x 8192 held-out tokens, the kernel
+     route against the einsum route, within phase 12's bf16 loss and
+     logits limits and phase 17's layer limit, which phase 17's planted
+     head swap must fail (phase 12's window fault printed); the kernel at
+     qwen3's evaluation shape timed beside plain, flex_attention and its
+     bound; (b) at depth 2, the first step's bf16 gradients against a
+     float32 copy of the weights and one AdamW update on the card against
+     its float64 formula, leaf by leaf, failing two planted faults (a
+     block output detached inside the remat wrapper; AdamW without bias
+     correction), and ef_int8_psum_tree of the two runs' layer gradients
+     as two peers on the card against the CPU (payloads exactly); (c)
+     mamba2-130m bf16 at full size: checkpoints every 4 steps, a NaN
+     planted in the weights at step 6 and rolled back, a SIGTERM after
+     step 4 flushing a checkpoint, the resume from it (its NaN rolled back
+     from disk), the joined losses equal to the uninterrupted run's;
+     run_fused over 4 batches against the uninterrupted run's checkpoint
+     of step 4 (iters, last loss, parameters and masters bit-equal); over
+     1 GB outliving the trainers fails;
   6. torch.profiler breakdown of the kernel loops (three runs on "cuda",
      one on "cuda-multistep" at T=4): device time by kernel and the
      device's idle share;
@@ -219,7 +249,7 @@ phi-3-vision-4.2b) — on one CUDA card at full size:
      1080x1920), the wrapper's choice marked.
 
 Every phase runs, at the sizes above, in the order listed (phase 20
-inside phases 12-13).  Phases 2-4, 9,
+inside phases 12-13, phase 21 after 19).  Phases 2-4, 9,
 10 and 14-16 are the stencil main path: the kernel launch counts are
 zeroed just before phase 2 and read just after phase 16 (the single-step
 launches also by shape, the multistep launches by T).  Phases 12-13, 20
@@ -228,7 +258,11 @@ zeroed just before phase 12 and read just after phase 19 (phase 20's
 cached attention takes no kernel, as in the reference); the bf16 layers
 at hd 64/128/256 must take the wgmma route and the f32 ones and bf16 at hd
 96 the CUDA-core route, and each route is its own entry of the
-``kernels`` line.  Every phase's failure propagates: the
+``kernels`` line.  Phase 21 is the training path: the counts are zeroed
+just before it and read after its evaluations (d), before the kernel is
+timed at qwen3's shape; the wgmma route must have launched (gemma2's
+evaluation).  Every phase's
+failure propagates: the
 exit code is non-zero and the final ok line is not printed.  Without a
 CUDA card, or without the repository around it, the script exits non-zero
 before printing any result.
@@ -2802,60 +2836,66 @@ FAMILY_SEQ = 4096
 
 
 def swa_family_shapes(gen, rate):
-    """The wgmma kernel at the MoE and hybrid families' attention shapes,
-    held against the plain version within one bf16 ulp (one kv head's
-    group at a time), then timed beside the plain version, a library
-    call's (flex_attention) and the function's bound."""
+    """The wgmma kernel at the MoE and hybrid families' attention shapes
+    (:func:`wgmma_shape_row`)."""
+    return {name: wgmma_shape_row(gen, rate, "phase11", name, 1, H, KH, 128,
+                                  FAMILY_SEQ)
+            for name, (H, KH) in FAMILY_SWA_SHAPES.items()}
+
+
+def wgmma_shape_row(gen, rate, phase, name, B, H, KH, hd, S):
+    """The wgmma kernel at one bf16 attention shape (B sequences of H / KH
+    heads, causal, global, no softcap), held against the plain version
+    within one bf16 ulp (one kv head's group at a time), then timed beside
+    the plain version, a library call's (flex_attention) and the
+    function's bound."""
     import torch
     from repro_torch.kernels import swa_attention as A
-    S, hd, out = FAMILY_SEQ, 128, {}
-    for name, (H, KH) in FAMILY_SWA_SHAPES.items():
-        G = H // KH
-        q, k, v = (torch.randn((n, S, hd), generator=gen, device=DEVICE)
-                   .to(torch.bfloat16) for n in (H, KH, KH))
-        before = A.launch_counts["wgmma"]
-        got = A.swa_attention(q, k, v, window=0, causal=True)
-        if A.launch_counts["wgmma"] != before + 1:
-            raise AssertionError(f"phase11 {name}: missed the wgmma route")
-        e = use = 0.0
-        for g in range(KH):
-            want = A.swa_attention_plain(q[g * G:(g + 1) * G], k[g:g + 1],
-                                         v[g:g + 1], window=0, causal=True)
-            part = got[g * G:(g + 1) * G]
-            e = max(e, max_err(part, want))
-            use = max(use, limit_use(part, want, TOL_SWA_BF16_RTOL,
-                                     TOL_SWA_BF16_ATOL))
-            del want, part
-        if not use <= 1.0:
-            raise AssertionError(
-                f"phase11 wgmma {name} (H {H}, KH {KH}, hd {hd}, S {S}): "
-                f"kernel/plain outside one bf16 ulp (use {use!r})")
-        ms = cuda_ms(lambda: A.swa_attention(q, k, v, window=0, causal=True),
-                     iters=10, warmup=2)
-        plain_ms = cuda_ms(lambda: A.swa_attention_plain(
-            q, k, v, window=0, causal=True), iters=2, warmup=1)
-        torch.cuda.empty_cache()
-        fn, lib_label, _ = library_attention(q, k, v, 0, 0.0)
-        lib_ms = cuda_ms(fn, iters=10, warmup=2) if fn else None
-        del fn
-        bound_ms, bound_by, split_ms = swa_bounds(S, 0, H, KH, hd, 2,
-                                                  rate=rate)
-        tflops = 4 * hd * band_pairs(S, 0) * H / (ms * 1e-3) / 1e12
-        out[name] = dict(heads=H, kv_heads=KH, head_dim=hd, seq=S, ms=ms,
-                         plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, split_bound_ms=split_ms,
-                         tflops=tflops, library_ms=lib_ms,
-                         library=lib_label, err=e, limit_use=use)
-        log(f"[phase11] swa_attention {name} (H {H}, KH {KH}, hd {hd}, S "
-            f"{S}, causal global, no softcap, bf16, wgmma route): kernel "
-            f"{ms:.4f} ms ({tflops:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}, bf16 tensor cores), "
-            f"split-design bound {split_ms:.4f} ms, {lib_label} "
-            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} ms; max_abs_err"
-            f" vs plain {e!r}, {use:.4f} of the one-ulp limit")
-        del q, k, v, got
-        torch.cuda.empty_cache()
-    return out
+    G = H // KH
+    q, k, v = (torch.randn((B * n, S, hd), generator=gen, device=DEVICE)
+               .to(torch.bfloat16) for n in (H, KH, KH))
+    before = A.launch_counts["wgmma"]
+    got = A.swa_attention(q, k, v, window=0, causal=True)
+    if A.launch_counts["wgmma"] != before + 1:
+        raise AssertionError(f"{phase} {name}: missed the wgmma route")
+    e = use = 0.0
+    for g in range(B * KH):
+        want = A.swa_attention_plain(q[g * G:(g + 1) * G], k[g:g + 1],
+                                     v[g:g + 1], window=0, causal=True)
+        part = got[g * G:(g + 1) * G]
+        e = max(e, max_err(part, want))
+        use = max(use, limit_use(part, want, TOL_SWA_BF16_RTOL,
+                                 TOL_SWA_BF16_ATOL))
+        del want, part
+    if not use <= 1.0:
+        raise AssertionError(
+            f"{phase} wgmma {name} (B {B}, H {H}, KH {KH}, hd {hd}, S {S}): "
+            f"kernel/plain outside one bf16 ulp (use {use!r})")
+    ms = cuda_ms(lambda: A.swa_attention(q, k, v, window=0, causal=True),
+                 iters=10, warmup=2)
+    plain_ms = cuda_ms(lambda: A.swa_attention_plain(
+        q, k, v, window=0, causal=True), iters=2, warmup=1)
+    torch.cuda.empty_cache()
+    fn, lib_label, _ = library_attention(q, k, v, 0, 0.0)
+    lib_ms = cuda_ms(fn, iters=10, warmup=2) if fn else None
+    del fn
+    bound_ms, bound_by, split_ms = swa_bounds(S, 0, H, KH, hd, 2, B=B,
+                                              rate=rate)
+    tflops = 4 * hd * band_pairs(S, 0) * H * B / (ms * 1e-3) / 1e12
+    row = dict(batch=B, heads=H, kv_heads=KH, head_dim=hd, seq=S, ms=ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               split_bound_ms=split_ms, tflops=tflops, library_ms=lib_ms,
+               library=lib_label, err=e, limit_use=use)
+    log(f"[{phase}] swa_attention {name} (B {B}, H {H}, KH {KH}, hd {hd}, "
+        f"S {S}, causal global, no softcap, bf16, wgmma route): kernel "
+        f"{ms:.4f} ms ({tflops:.2f} TFLOP/s), plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}, bf16 tensor cores), "
+        f"split-design bound {split_ms:.4f} ms, {lib_label} "
+        f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} ms; max_abs_err"
+        f" vs plain {e!r}, {use:.4f} of the one-ulp limit")
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return row
 
 
 # the attention shapes of phase 19 and of 17(b) (causal, global, no
@@ -2945,7 +2985,7 @@ def swa_slice_shapes(gen, rate):
 
 def lm_model(cfg, gen):
     from repro_torch.models import transformer as T
-    model = T.init_params(cfg, generator=gen, device="cuda")
+    model = T.init_params(cfg, generator=gen, device=DEVICE)
     sync()
     return model
 
@@ -3159,8 +3199,8 @@ def phase13(gen, model, cfg, label, cache_dtype):
 
 def lm_phases(gen, seed):
     """Phases 12-13 and 20: bf16 gemma2-9b at full width and depth (the
-    scoring forward, greedy serving, then continuous serving and the int8
-    cache on the same model), the tight f32 gates at full width and depth
+    scoring forward, greedy serving, then continuous serving on its first
+    SERVE20_DEPTH layers and the int8 cache on the whole model), the tight f32 gates at full width and depth
     2 (20(b) and 20(e) on that model too), and 20(d) on mamba2-130m."""
     import dataclasses
     import torch
@@ -3173,7 +3213,8 @@ def lm_phases(gen, seed):
     r12 = phase12(gen, model, cfg, "bf16 full depth")
     r13 = phase13(gen, model, cfg, "bf16 full depth", torch.bfloat16)
     t20 = time.perf_counter()
-    r20 = {"a": phase20a(cfg, model, seed, r13),
+    r20 = {"a": phase20a(dataclasses.replace(cfg, num_layers=SERVE20_DEPTH),
+                         cut_depth(model, SERVE20_DEPTH), seed),
            "c": phase20c(cfg, model, gen)}
     t20 = time.perf_counter() - t20
     del model
@@ -3225,6 +3266,8 @@ def lm_phases(gen, seed):
 # ---------------------------------------------------------------------------
 
 SERVE20_SLOTS, SERVE20_SEGMENT, SERVE20_CAP = 4, 8, 32
+SERVE20_DEPTH = 22     # 20(a): the first 22 of gemma2-9b's 42 layers (11
+                       # local, 11 global), cut for the script's time
 SERVE20_REQUESTS = 12
 SERVE20_PROMPTS = (512, SERVE_PROMPT)  # the pool binds at 4576: max_seq
 SERVE20_BUDGETS = (4, SERVE20_CAP)     # 4608 > the 4096 window (rings)
@@ -3232,7 +3275,7 @@ SERVE20_F32_REQUESTS = 8               # 20(b), 20(e): f32 at depth 2
 SERVE20_INT8_STEPS = 16                # 20(c)
 SERVE20_SSM_LENS = (256, 384, 512, 640)  # 20(d): two requests a length
 SERVE20_E_PROMPTS = (256, 1024)        # 20(e): sampled decode
-# 20(a) gates, bf16 at full depth.  A padded and an unpadded prefill round
+# 20(a) gates, bf16 at depth 22.  A padded and an unpadded prefill round
 # differently in bf16 (other product shapes), so tokens are held to the
 # teacher-forced argmax on most positions (gemma2's margins are wide: a
 # median top-1 - top-2 gap of 1.875 in phase 12) and each admission's
@@ -3386,9 +3429,9 @@ def teacher_forced(cfg, model, reqs, seq):
     return hits, total
 
 
-def phase20a(cfg, model, seed, r13=None):
-    """gemma2-9b bf16 continuous serving at full width and depth; the
-    profiled segment is logged beside phase 13's decode (``r13``)."""
+def phase20a(cfg, model, seed):
+    """gemma2-9b bf16 continuous serving at full width, on ``cfg``'s depth
+    (SERVE20_DEPTH in the script)."""
     import dataclasses
     import torch
     from repro_torch.models import transformer as T
@@ -3452,7 +3495,8 @@ def phase20a(cfg, model, seed, r13=None):
     slot_all = sum(B * it for B, it in shapes)
     idle_all = slot_all - sum(max(len(r.tokens) - 1, 0) for r in res_all)
     steps = prof["steps"] if prof else 0
-    log(f"[phase20] (a) {LM_ARCH} bf16 full depth: ContinuousEngine slots "
+    log(f"[phase20] (a) {LM_ARCH} bf16 depth {cfg.num_layers}: "
+        f"ContinuousEngine slots "
         f"{SERVE20_SLOTS}, segment {SERVE20_SEGMENT}, max_prompt_len {S0} "
         f"(max_seq {S0 + SERVE20_CAP}, "
         f"{sum(0 < s.window < S0 + SERVE20_CAP for s in T.layer_specs(cfg))}"
@@ -3472,10 +3516,7 @@ def phase20a(cfg, model, seed, r13=None):
             f"device busy {prof['busy'] / max(steps, 1) * 1e3:.3f} ms (idle "
             f"share {1 - prof['busy'] / prof['secs']:.3f}), "
             f"{sum(r[1] for r in prof['rows']) / max(steps, 1):.0f} kernels "
-            f"a step" + (f"; phase 13's B=2 decode beside it: "
-                         f"{r13['step_ms']:.3f} ms a step (decode_step "
-                         f"alone), idle share {r13['decode_idle']:.3f}"
-                         if r13 else ""))
+            f"a step")
         for us, count, key in prof["rows"][:6]:
             log(f"[phase20]   {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
     log(f"[phase20] (a) teacher-forced argmax (unpadded B=1 forwards): "
@@ -5073,6 +5114,671 @@ def slice_readings(r19) -> dict:
             f"{VLM_ARCH} f32 depth 2": fwd(r19["vlm float32"])}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: training (AdamW with float32 masters, the Trainer, checkpoints,
+# NaN rollback, preemption, the fused segment, int8 compression)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen3-1.7b"          # 21(a), (b): full width
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM = 2048, 8, 4   # microbatch 2 x 2048
+TRAIN_STEPS, TRAIN_LR, TRAIN_WARMUP = 12, 1e-3, 3
+MIN_LOSS_DROP = 0.5    # 21(a): the last loss at least this far below the
+                       # first (the reference's learning test's margin)
+TRAIN_EVAL_BATCH = 2   # 21(d): one microbatch of held-out sequences
+# 21(d): the kernel route's evaluation of trained weights.  QK-norm keeps
+# qwen3's attention on the einsum route in both packages, so the model
+# evaluated on the kernel is one the route sends there: gemma2-9b at full
+# width, cut to depth 2 (one local and one global layer, 1.31 B
+# parameters), trained EVAL_STEPS Trainer.run steps of EVAL_BATCH x
+# TRAIN_SEQ, then held-out sequences of LM_SEQ tokens (past the 4096
+# window).  The planted fault the gates must fail is phase 17's head swap;
+# phase 12's window fault (+128 keys) is printed, not gated: the trained
+# model barely attends 4096 back on this task (on an H100 80GB HBM3 at
+# 700 W it moved the loss by 1.16e-4 and the worst layer by 0.021).
+EVAL_ARCH, EVAL_DEPTH, EVAL_STEPS, EVAL_BATCH = LM_ARCH, 2, 4, 2
+# 21(b), bf16 against float32 on the same weights at depth 2: a gradient
+# leaf within 10% of the float32 leaf's norm (bf16 keeps 8 bits: the
+# products and the residual stream round at 2^-8 relative).  One AdamW
+# update of the bf16 run on its gradients, on the card, against the same
+# first step in float64 by the update's formula written out here
+# (:func:`reference_master_steps`): each master's step within 1e-4 (float32
+# rounds at 6e-8).  A detached block output zeroes a layer's gradients
+# (gap 1); no bias correction scales the first step by (1 - b1) /
+# sqrt(1 - b2) = 0.447 (gap 0.55).  Held against the float32 run's own
+# gradients instead, Adam's first step (lr·sign(g) after clipping) turns
+# the bf16 gradients' sign flips near zero into gaps of 10-35%, which the
+# phase prints but does not gate.
+TOL_GRAD_REL, TOL_ADAM_REL = 0.1, 1e-4
+ADAM_KW = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01,
+               grad_clip=1.0)      # 21(b)'s update, on both sides
+SSM_TRAIN_ARCH = "mamba2-130m"     # 21(c): full width and depth
+SSM_TRAIN_SEQ, SSM_TRAIN_BATCH, SSM_TRAIN_ACCUM = 2048, 4, 2
+SSM_TRAIN_STEPS, SSM_CKPT_EVERY = 8, 4
+SSM_NAN_STEP, SSM_PREEMPT_STEP = 6, 4
+SSM_FUSED_K = SSM_CKPT_EVERY       # run_fused against the first checkpoint
+
+
+def train_flops(cfg, n_params, B, S) -> float:
+    """Counted FLOPs of one training step with remat: the layers' matrix
+    products 8·N·tokens (forward, recomputed forward, backward twice), the
+    tied head 6·V·D·tokens (not recomputed), and the einsum attention,
+    which computes all S² scores: 4·S²·hd·H a layer and sequence forward,
+    4x that with the recompute and backward."""
+    V, D = cfg.padded_vocab, cfg.d_model
+    n_layers = n_params - V * D
+    tokens = B * S
+    attn = 4 * 4 * S * S * cfg.resolved_head_dim * cfg.num_heads \
+        * cfg.num_layers * B
+    return 8 * n_layers * tokens + 6 * V * D * tokens + attn
+
+
+def phase21a(gen, seed):
+    """qwen3-1.7b bf16 at full width and depth, remat on: TRAIN_STEPS
+    Trainer.run steps on SyntheticLM (global batch 8 x 2048, accum 4), the
+    last of them under the profiler (device events only).  Returns
+    (readings, the trained model)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import AdamW, cosine_with_warmup
+    from repro_torch.train import TrainConfig, Trainer
+    cfg = get_config(TRAIN_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = lm_model(cfg, gen)
+    n = sum(p.numel() for p in model.parameters())
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+    opt = AdamW(lr=cosine_with_warmup(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS),
+                weight_decay=0.01)
+    tr = Trainer(cfg, TrainConfig(steps=TRAIN_STEPS, accum=TRAIN_ACCUM,
+                                  log_every=4), opt, device=DEVICE)
+    inner, steps, trace = tr.train_step, [], {}
+
+    def step(p, o, b):
+        if len(steps) == TRAIN_STEPS - 1:          # the last step, traced
+            box = []
+            trace["s"], trace["busy"], trace["rows"] = profiled(
+                lambda: box.append(inner(p, o, b)), cpu=False)
+            out, s = box[0], trace["s"]
+        else:
+            out, s = wall(lambda: inner(p, o, b))
+        m = out[2]
+        steps.append(dict(s=s, loss=float(m["total_loss"]),
+                          grad_norm=float(m["grad_norm"]),
+                          clip=float(m["clip_scale"]),
+                          lr=float(m["lr"])))
+        return out
+    tr.train_step = step
+    before = swa_launches()
+    model, state, info = tr.run(model, lambda s: data.batches(s), log=log)
+    launched = swa_launches() - before
+    del state
+    peak = torch.cuda.max_memory_allocated()
+    secs, busy, rows = trace["s"], trace["busy"], trace["rows"]
+    swa_rows = [r for r in rows if "swa" in r[2]]
+    untraced = [x["s"] for x in steps[1:-1]]
+    step_s = sorted(untraced)[len(untraced) // 2]
+    flops = train_flops(cfg, n, TRAIN_BATCH, TRAIN_SEQ)
+    h = info["history"]
+    r = dict(params=n, steps=info["steps"], faults=info["faults"],
+             history=h, first_step_s=steps[0]["s"], step_s=step_s,
+             step_s_all=[x["s"] for x in steps],
+             tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+             peak_gb=peak / 1e9, profiled_wall_s=secs, profiled_busy_s=busy,
+             busy_share=busy / secs, trace_cost_s=secs - step_s,
+             flops=flops, mfu=flops / step_s / BF16_RATE,
+             grad_norms=[x["grad_norm"] for x in steps],
+             clip=[x["clip"] for x in steps], swa_launches=launched,
+             swa_kernels_in_trace=len(swa_rows))
+    log(f"[phase21] (a) {TRAIN_ARCH} bf16 at full width and depth "
+        f"({cfg.num_layers} layers, d {cfg.d_model}, {n / 1e9:.4f} B "
+        f"parameters, remat {cfg.remat}): {info['steps']} Trainer.run steps"
+        f" of {TRAIN_BATCH} x {TRAIN_SEQ} tokens (accum {TRAIN_ACCUM}, "
+        f"cosine to {TRAIN_LR}): step {step_s:.4f} s (median of steps 2-"
+        f"{len(steps) - 1}; the first {steps[0]['s']:.4f} s), "
+        f"{r['tokens_per_s']:.0f} tokens/s, peak memory {peak / 1e9:.2f} GB;"
+        f" loss {h[0]:.4f} -> {h[-1]:.4f} ({', '.join(f'{x:.3f}' for x in h)}"
+        f"); grad norms {', '.join(f'{x:.3g}' for x in r['grad_norms'])}; "
+        f"faults {info['faults']}")
+    log(f"[phase21] (a) step {len(steps)} under the profiler (device events "
+        f"only): wall {secs:.4f} s, device busy {busy:.4f} s (busy share of "
+        f"the traced step {busy / secs:.3f}; the trace's own cost, its wall "
+        f"less the untraced median, {secs - step_s:.4f} s), "
+        f"{sum(x[1] for x in rows)} kernels; counted {flops / 1e12:.1f} "
+        f"TFLOP a step = {r['mfu']:.3f} of the bf16 dense peak at the "
+        f"median step; swa_attention launches in the {len(steps)} steps "
+        f"{launched}, swa kernels in the trace {len(swa_rows)}")
+    for us, count, key in rows[:8]:
+        log(f"[phase21]   {us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
+    if not (h[-1] < h[0] - MIN_LOSS_DROP and info["faults"] == 0
+            and len(h) == TRAIN_STEPS):
+        raise AssertionError(f"phase21 (a): the loss did not fall "
+                             f"({h}, faults {info['faults']})")
+    if not all(math.isfinite(x["grad_norm"]) and math.isfinite(x["loss"])
+               for x in steps):
+        raise AssertionError(f"phase21 (a): a non-finite gradient ({steps})")
+    if launched or swa_rows:
+        raise AssertionError(f"phase21 (a): the training step launched "
+                             f"swa_attention ({launched}; {swa_rows})")
+    return r, model
+
+
+def qwen3_evaluation(model, seed):
+    """(a)'s trained qwen3-1.7b on held-out sequences of the training task
+    (a step past the run's), lm_loss under no_grad on the card's default
+    route: QK-norm keeps every attention on the einsum route, in the
+    reference as in the port, so no kernel may launch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM, shard_batch
+    from repro_torch.train.objective import lm_loss
+    cfg = get_config(TRAIN_ARCH)
+    batch = shard_batch(SyntheticLM(cfg.vocab_size, TRAIN_SEQ,
+                                    TRAIN_EVAL_BATCH, seed=seed)
+                        .batch_at(10 ** 6), DEVICE)
+    before = swa_launches()
+    with torch.no_grad():
+        loss, secs = wall(lambda: float(lm_loss(cfg, model, batch)[0]))
+    launched = swa_launches() - before
+    log(f"[phase21] (d) trained {TRAIN_ARCH} on {TRAIN_EVAL_BATCH} x "
+        f"{TRAIN_SEQ} held-out tokens, lm_loss under no_grad on the card's "
+        f"default route: {loss!r} in {secs:.4f} s, swa_attention launches "
+        f"{launched} (QK-norm: the einsum route)")
+    if launched:
+        raise AssertionError(f"phase21 (d): {TRAIN_ARCH}'s evaluation "
+                             f"launched swa_attention {launched} times")
+    return dict(loss=loss, s=secs, launches=launched)
+
+
+def phase21d(gen, seed):
+    """gemma2-9b at full width and depth EVAL_DEPTH, trained EVAL_STEPS
+    Trainer.run steps (which launch no kernel), then evaluated under
+    no_grad on held-out LM_SEQ-token sequences by phase 12's route
+    comparison: the port's forward and lm_loss on the kernel route (the
+    card's default) against the einsum route, within phase 12's bf16 loss
+    and logits limits, and layer by layer within phase 17's update-gap
+    limit, which phase 17's planted head swap must fail."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM, shard_batch
+    from repro_torch.kernels import swa_attention as A
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamW, cosine_with_warmup
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.objective import lm_loss
+    cfg = dataclasses.replace(get_config(EVAL_ARCH), num_layers=EVAL_DEPTH)
+    model = lm_model(cfg, gen)
+    n = sum(p.numel() for p in model.parameters())
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, EVAL_BATCH, seed=seed + 3)
+    opt = AdamW(lr=cosine_with_warmup(TRAIN_LR, 1, EVAL_STEPS),
+                weight_decay=0.01)
+    tr = Trainer(cfg, TrainConfig(steps=EVAL_STEPS, log_every=100), opt,
+                 device=DEVICE)
+    before = swa_launches()
+    (model, state, info), s_train = wall(lambda: tr.run(
+        model, lambda st: data.batches(st), log=lambda *a: None))
+    trained = swa_launches() - before
+    del state
+    torch.cuda.empty_cache()
+    h = info["history"]
+    batch = shard_batch(SyntheticLM(cfg.vocab_size, LM_SEQ, 1, seed=seed + 3)
+                        .batch_at(10 ** 6), DEVICE)
+    before = dict(A.launch_counts)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        r = route_compare(cfg, model, batch)
+        r["layer"] = layerwise_routes(cfg, model, batch,
+                                      contextlib.nullcontext, einsum_route)
+        with einsum_route():
+            logits_e, _ = T.forward(cfg, model, batch)
+        with planted_head_swap():
+            logits_h, _ = T.forward(cfg, model, batch)
+            heads = route_gap(logits_h, float(lm_loss(cfg, model, batch)[0]),
+                              logits_e, r["loss_einsum"])
+        del logits_e, logits_h
+        heads["layer"] = layerwise_routes(cfg, model, batch,
+                                          planted_head_swap, einsum_route)
+    s_eval = time.perf_counter() - t0
+    by_route = {k: A.launch_counts[k] - before[k] for k in before}
+    del model, batch
+    torch.cuda.empty_cache()
+
+    def passes(g):
+        return (g["loss_rel"] <= TOL_LOSS_BF16
+                and g["max_dlogits"] <= TOL_LOGITS_BF16
+                and g["layer"]["rel"] <= TOL_MOE_LAYER_REL)
+    r.update(params=n, history=h, faults=info["faults"], s_train=s_train,
+             train_launches=trained, s_eval=s_eval, launches=by_route,
+             layer_worst=r["layer"]["rel"], heads=heads, passes=passes(r),
+             fault_passes=passes(heads))
+    log(f"[phase21] (d) {EVAL_ARCH} bf16 at full width, depth {EVAL_DEPTH} "
+        f"({n / 1e9:.4f} B parameters): {info['steps']} Trainer.run steps "
+        f"of {EVAL_BATCH} x {TRAIN_SEQ} tokens in {s_train:.2f} s, loss "
+        f"{', '.join(f'{x:.4f}' for x in h)}, faults {info['faults']}, "
+        f"swa_attention launches {trained}")
+    attn = ", ".join(f"{a['rel']:.4g}" for a in r["layer"]["attn"])
+    log(f"[phase21] (d) the trained {EVAL_ARCH} on 1 x {LM_SEQ} held-out "
+        f"tokens, no_grad ({s_eval:.2f} s): kernel route "
+        f"{r['s_kernel']:.4f} s/forward, launches per forward "
+        f"{r['launches_kernel']}; einsum route {r['s_einsum']:.4f} "
+        f"s/forward, launches {r['launches_einsum']}; lm_loss "
+        f"{r['loss_kernel']!r} against {r['loss_einsum']!r} (rel "
+        f"{r['loss_rel']:.3g}, limit {TOL_LOSS_BF16}), max|dlogits| "
+        f"{r['max_dlogits']:.4g} (limit {TOL_LOGITS_BF16}), top-1 "
+        f"{r['top1']:.5f} (top-1 - top-2 gap: median "
+        f"{r['margin']['median']:.4g}, share below 0.05 "
+        f"{r['margin']['below_005']:.4f}); layer by layer, worst update gap"
+        f" {r['layer']['rel']:.4g} (limit {TOL_MOE_LAYER_REL}; attention "
+        f"layers {attn}); launches by route {by_route}")
+    log(f"[phase21] (d) planted head swap (heads 0 and 1 of the kernel's "
+        f"output) vs einsum: lm_loss rel {heads['loss_rel']:.3g}, "
+        f"max|dlogits| {heads['max_dlogits']:.4g}, worst layer gap "
+        f"{heads['layer']['rel']:.4g}; the routes pass the gates "
+        f"{r['passes']}, the head swap passes them {r['fault_passes']}; "
+        f"phase 12's planted window +{FAULT_SHIFT} (not gated): lm_loss rel "
+        f"{r['fault']['loss_rel']:.3g}, max|dlogits| "
+        f"{r['fault']['max_dlogits']:.4g}")
+    if trained or not (all(n == EVAL_DEPTH for n in r["launches_kernel"])
+                       and not any(r["launches_einsum"])):
+        raise AssertionError(
+            f"phase21 (d): launches in training {trained}, per forward "
+            f"{r['launches_kernel']} (kernel route), {r['launches_einsum']} "
+            f"(einsum route); want 0, {EVAL_DEPTH} and 0")
+    if info["faults"] or len(h) != EVAL_STEPS or not r["finite"]:
+        raise AssertionError(f"phase21 (d): training {info}, finite logits "
+                             f"{r['finite']}")
+    if not r["passes"] or r["fault_passes"]:
+        raise AssertionError(
+            f"phase21 (d): routes {r['passes']} (loss {r['loss_rel']!r}, "
+            f"logits {r['max_dlogits']!r}, layer {r['layer']['rel']!r}); "
+            f"the head swap passes {r['fault_passes']} ({heads})")
+    return r
+
+
+@contextlib.contextmanager
+def planted_detached_block(layer):
+    """Planted fault: ``layer``'s block output detached inside the remat
+    wrapper (the function the checkpoint recomputes)."""
+    from repro_torch.models import transformer as T
+    real = T.apply_layer
+
+    def detached(cfg, spec, p, x, **kw):
+        x, cache, aux = real(cfg, spec, p, x, **kw)
+        return (x.detach() if p is layer else x), cache, aux
+    T.apply_layer = detached
+    try:
+        yield
+    finally:
+        T.apply_layer = real
+
+
+def no_bias_correction():
+    """Planted fault: AdamW without its bias corrections."""
+    import torch
+    from repro_torch.optim import AdamW
+
+    class Planted(AdamW):
+        def _corrections(self, step):
+            one = torch.ones((), device=step.device)
+            return one, one
+    return Planted
+
+
+def leaf_gaps(got: dict, want: dict) -> dict:
+    """||got - want|| / ||want|| per leaf (float64)."""
+    return {k: float((got[k].double() - want[k].double()).norm()
+                     / want[k].double().norm().clamp_min(1e-30))
+            for k in want}
+
+
+def master_steps(opt_cls, grads, named):
+    """One update of ``opt_cls(**ADAM_KW)`` on copies of ``named``: each
+    master's step (after - before), by name."""
+    import torch
+    params = {k: t.detach().clone() for k, t in named.items()}
+    opt = opt_cls(**ADAM_KW)
+    state = opt.init(params)
+    before = {k: m.clone() for k, m in state.master.items()}
+    opt.update(grads, state, params)
+    out = {k: state.master[k] - before[k] for k in before}
+    del state, params, before
+    torch.cuda.empty_cache()
+    return out
+
+
+def reference_master_steps(grads, named):
+    """The first AdamW step of each master in float64, by the update's
+    formula written out (ADAM_KW): the gradients clipped by their global
+    norm, the moments from zero and their bias corrections at step 1, the
+    weight decay added to the update before the learning rate scales it."""
+    import torch
+    k = ADAM_KW
+    gnorm = math.sqrt(sum(float(g.double().square().sum())
+                          for g in grads.values()))
+    scale = min(1.0, k["grad_clip"] / (gnorm + 1e-9))
+    out = {}
+    for name, w in named.items():
+        g = grads[name].double() * scale
+        m = (1 - k["b1"]) * g
+        v = (1 - k["b2"]) * g * g
+        u = (m / (1 - k["b1"])) / (torch.sqrt(v / (1 - k["b2"])) + k["eps"])
+        out[name] = -k["lr"] * (u + k["weight_decay"] * w.detach().double())
+        del g, m, v, u
+    return out
+
+
+def phase21b(gen, seed):
+    """Layer gates at full width, depth 2: the first step's bf16 gradients
+    against a float32 copy of the same weights on the card, and one AdamW
+    update on the card against its float64 formula, leaf by leaf, each
+    gate held against its planted fault; then the int8 error-feedback
+    payloads of the two runs' gradients as two peers, on the card against
+    the CPU."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamW
+    from repro_torch.train.objective import grad_accum_step
+    from repro_torch.train.trainer import einsum_route
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_layers=2)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m16 = lm_model(cfg, gen)
+    m32 = T.Transformer(cfg32, device=DEVICE)
+    with torch.no_grad():
+        for (_, a), (_, b) in zip(m32.named_parameters(),
+                                  m16.named_parameters()):
+            a.copy_(b.float())
+    batch = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, 2, seed=seed + 2) \
+        .batch_at(0)
+    with einsum_route():
+        g32, l32, _ = grad_accum_step(cfg32, m32, batch, device=DEVICE)
+        g16, l16, _ = grad_accum_step(cfg, m16, batch, device=DEVICE)
+        with planted_detached_block(m16.layers[0]):
+            gf, _, _ = grad_accum_step(cfg, m16, batch, device=DEVICE)
+    gaps = leaf_gaps(g16, g32)
+    fgaps = leaf_gaps(gf, g32)
+    del gf
+    named16 = dict(m16.named_parameters())
+    named32 = dict(m32.named_parameters())
+    u16 = master_steps(AdamW, g16, named16)
+    ref = reference_master_steps(g16, named16)
+    agaps = leaf_gaps(u16, ref)
+    pgaps = leaf_gaps(master_steps(no_bias_correction(), g16, named16), ref)
+    del ref
+    ngaps = leaf_gaps(u16, master_steps(AdamW, g32, named32))
+    del u16, named16, named32
+    torch.cuda.empty_cache()
+    worst = lambda d: max(d.items(), key=lambda kv: kv[1])
+    r = dict(loss_bf16=float(l16), loss_f32=float(l32),
+             grad_worst=worst(gaps), grad_fault_worst=worst(fgaps),
+             adam_worst=worst(agaps), adam_fault_worst=worst(pgaps),
+             adam_noise_worst=worst(ngaps), grad_gaps=gaps, adam_gaps=agaps)
+    r["grad_passes"] = r["grad_worst"][1] <= TOL_GRAD_REL
+    r["grad_fault_passes"] = r["grad_fault_worst"][1] <= TOL_GRAD_REL
+    r["adam_passes"] = r["adam_worst"][1] <= TOL_ADAM_REL
+    r["adam_fault_passes"] = r["adam_fault_worst"][1] <= TOL_ADAM_REL
+    log(f"[phase21] (b) {TRAIN_ARCH} at full width, depth 2, 2 x "
+        f"{TRAIN_SEQ} tokens: loss bf16 {r['loss_bf16']!r}, f32 "
+        f"{r['loss_f32']!r}; gradient gap bf16 vs f32 (||d|| / ||g_f32||) "
+        f"worst {r['grad_worst'][1]:.4g} ({r['grad_worst'][0]}), median "
+        f"{sorted(gaps.values())[len(gaps) // 2]:.4g}, limit {TOL_GRAD_REL}"
+        f"; planted detached block output (layer 0) worst "
+        f"{r['grad_fault_worst'][1]:.4g} ({r['grad_fault_worst'][0]}); "
+        f"one AdamW update of the bf16 run on the card against its float64 "
+        f"formula: master step gap worst {r['adam_worst'][1]:.4g} "
+        f"({r['adam_worst'][0]}), limit {TOL_ADAM_REL}; planted AdamW "
+        f"without bias correction worst {r['adam_fault_worst'][1]:.4g}; "
+        f"the bf16 run's update against the f32 run's (not gated) worst "
+        f"{r['adam_noise_worst'][1]:.4g} ({r['adam_noise_worst'][0]})")
+    log(f"[phase21] (b) gates pass: gradients {r['grad_passes']} (planted "
+        f"fault {r['grad_fault_passes']}), AdamW {r['adam_passes']} (planted"
+        f" fault {r['adam_fault_passes']})")
+    if not (r["grad_passes"] and r["adam_passes"]) or \
+            r["grad_fault_passes"] or r["adam_fault_passes"]:
+        raise AssertionError(f"phase21 (b): layer gates {r}")
+    # the layers' leaves (the embedding's 311 M entries would take the
+    # CPU's side most of a minute)
+    r["compression"] = phase21_compression(
+        [{k: g[k] for k in g if k.startswith("layers.")} for g in (g16, g32)])
+    del m16, m32, g16, g32
+    torch.cuda.empty_cache()
+    return r
+
+
+def phase21_compression(peers):
+    """``ef_int8_psum_tree`` over the peers' gradient trees on the card
+    and the same on the CPU: the int8 payloads and scales
+    (``ef_int8_payloads``, leaf by leaf) exactly, the summed trees and the
+    new residuals exactly."""
+    import torch
+    from repro_torch.train.compression import (ef_int8_payloads,
+                                               ef_int8_psum_tree,
+                                               init_error_state)
+    cpu = [{k: g.cpu() for k, g in p.items()} for p in peers]
+    t0 = time.perf_counter()
+    errs_g = [init_error_state(p) for p in peers]
+    errs_c = [init_error_state(p) for p in cpu]
+    payloads = True
+    for k in peers[0]:
+        qg, sg, _ = ef_int8_payloads([p[k] for p in peers],
+                                     [e[k] for e in errs_g])
+        qc, sc, _ = ef_int8_payloads([p[k] for p in cpu],
+                                     [e[k] for e in errs_c])
+        payloads &= bool(torch.equal(sg.cpu(), sc)) and all(
+            torch.equal(a.cpu(), b) for a, b in zip(qg, qc))
+    tot_g, new_g = ef_int8_psum_tree(peers, errs_g)
+    tot_c, new_c = ef_int8_psum_tree(cpu, errs_c)
+    out = dict(leaves=len(peers[0]),
+               elements=sum(g.numel() for g in peers[0].values()),
+               payloads_equal=payloads,
+               sums_equal=all(torch.equal(tot_g[k].cpu(), tot_c[k])
+                              for k in tot_c),
+               residuals_equal=all(torch.equal(eg[k].cpu(), ec[k])
+                                   for eg, ec in zip(new_g, new_c)
+                                   for k in ec),
+               s=time.perf_counter() - t0)
+    log(f"[phase21] (d) int8 error feedback, two peers (the bf16 and f32 "
+        f"gradients of (b)'s layers: {out['leaves']} leaves, "
+        f"{out['elements']} elements a peer), card vs CPU: payloads and "
+        f"scales equal {payloads}, sums equal {out['sums_equal']}, "
+        f"residuals equal {out['residuals_equal']} ({out['s']:.1f} s)")
+    if not payloads:
+        raise AssertionError("phase21: the card's int8 payloads differ from "
+                             "the CPU's")
+    return out
+
+
+def phase21c(seed):
+    """mamba2-130m bf16 at full size through the Trainer: checkpoints
+    every SSM_CKPT_EVERY steps, a NaN planted in the weights at step
+    SSM_NAN_STEP and rolled back, a preemption signal after step
+    SSM_PREEMPT_STEP flushing a checkpoint, the resume from it (whose NaN
+    rolls back from disk); the joined losses must equal the uninterrupted
+    run's.  Then ``run_fused`` over the first SSM_FUSED_K batches against
+    the uninterrupted run's checkpoint of that step (its parameters and
+    masters) and its loss there."""
+    import os
+    import shutil
+    import signal
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import AdamW, cosine_with_warmup
+    from repro_torch.train import TrainConfig, Trainer, checkpoint as C
+    cfg = get_config(SSM_TRAIN_ARCH)
+    data = SyntheticLM(cfg.vocab_size, SSM_TRAIN_SEQ, SSM_TRAIN_BATCH,
+                       seed=seed)
+    opt = AdamW(lr=cosine_with_warmup(1e-3, 2, SSM_TRAIN_STEPS),
+                weight_decay=0.01)
+    root = ROOT / "build" / "phase21_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def model(offset=0):
+        g = torch.Generator(device=DEVICE).manual_seed(seed + 21 + offset)
+        return lm_model(cfg, g)
+
+    def trainer(d, steps=SSM_TRAIN_STEPS, preempt_at=None):
+        tr = Trainer(cfg, TrainConfig(
+            steps=steps, accum=SSM_TRAIN_ACCUM, ckpt_dir=str(root / d),
+            ckpt_every=SSM_CKPT_EVERY, keep_ckpts=2, log_every=100), opt,
+            device=DEVICE)
+        inner, planted = tr.train_step, []
+
+        def step(p, o, b):
+            if int(o.step) == SSM_NAN_STEP - 1 and not planted:
+                planted.append(True)
+                with torch.no_grad():
+                    p.layers[0].ssm.in_proj.fill_(float("nan"))
+            out = inner(p, o, b)
+            if preempt_at is not None and int(o.step) == preempt_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+        tr.train_step = step
+        return tr
+
+    def run(tr, m):
+        (_, state, info), s = wall(lambda: tr.run(
+            m, lambda st: data.batches(st), log=lambda *a: None))
+        return state, info, s
+
+    _, whole, s_whole = run(trainer("whole"), model())
+    cut = trainer("cut", preempt_at=SSM_PREEMPT_STEP)
+    prev = cut.install_preemption_handler()
+    try:
+        _, first, s_first = run(cut, model())
+    finally:
+        for sig, h in prev.items():
+            signal.signal(sig, h)
+    flushed = C.latest_step(str(root / "cut"))
+    state, rest, s_rest = run(trainer("cut"), model(offset=1))
+    joined = first["history"] + rest["history"]
+    equal = joined == whole["history"]
+    gap = float(np.max(np.abs(np.subtract(joined, whole["history"])))) \
+        if len(joined) == len(whole["history"]) else math.inf
+    del state
+    # run_fused over the first K batches against the uninterrupted run's
+    # checkpoint of step K (its NaN comes later)
+    K = SSM_FUSED_K
+    stacked = {k: np.stack([data.batch_at(i)[k] for i in range(K)])
+               for k in ("tokens", "labels")}
+    tr = Trainer(cfg, TrainConfig(steps=K, accum=SSM_TRAIN_ACCUM), opt,
+                 device=DEVICE)
+    m1 = model()
+    (fused, fstate, last, iters), s_fused = wall(
+        lambda: tr.run_fused(m1, opt.init(m1), stacked))
+    m2 = model(offset=1)
+    (saved, sstate), at, _ = C.restore(str(root / "whole"),
+                                       (m2, opt.init(m2)), step=K)
+    params_equal = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        fused.named_parameters(), saved.named_parameters()))
+    masters_equal = all(torch.equal(fstate.master[k], sstate.master[k])
+                        for k in sstate.master)
+    run_last = whole["history"][K - 1]
+    del m1, m2, fused, saved, fstate, sstate
+    shutil.rmtree(root, ignore_errors=True)
+    r = dict(whole=whole, first=first, rest=rest, flushed_step=flushed,
+             equal=equal, max_gap=gap, s_whole=s_whole, s_first=s_first,
+             s_rest=s_rest, fused_iters=int(iters), fused_last=float(last),
+             run_last=run_last, fused_s=s_fused,
+             fused_params_equal=params_equal,
+             fused_masters_equal=masters_equal)
+    log(f"[phase21] (c) {SSM_TRAIN_ARCH} bf16 at full size, {SSM_TRAIN_BATCH}"
+        f" x {SSM_TRAIN_SEQ} tokens (accum {SSM_TRAIN_ACCUM}), checkpoints "
+        f"every {SSM_CKPT_EVERY}: uninterrupted {whole['steps']} steps with "
+        f"the NaN at step {SSM_NAN_STEP} ({whole['faults']} fault, rolled "
+        f"back in memory) {s_whole:.2f} s, losses "
+        f"{', '.join(f'{x:.4f}' for x in whole['history'])}; preempted "
+        f"after step {first['steps']} (flushed checkpoint at step "
+        f"{flushed}) {s_first:.2f} s; resumed to {rest['steps']} "
+        f"({rest['faults']} fault, rolled back from disk) {s_rest:.2f} s; "
+        f"joined losses equal the uninterrupted run's {equal} (max gap "
+        f"{gap!r})")
+    log(f"[phase21] (c) run_fused over K={K}: iters {int(iters)}, last loss"
+        f" {float(last)!r} vs the uninterrupted run's step {K} "
+        f"{run_last!r}; against its checkpoint of step {at}: parameters "
+        f"bit-equal {params_equal}, masters bit-equal {masters_equal}; "
+        f"{s_fused:.2f} s")
+    if not (equal and first["steps"] == SSM_PREEMPT_STEP
+            and flushed == SSM_PREEMPT_STEP and whole["faults"] == 1
+            and rest["faults"] == 1 and rest["steps"] == SSM_TRAIN_STEPS):
+        raise AssertionError(f"phase21 (c): resilience {r}")
+    if not (int(iters) == K and float(last) == run_last and at == K
+            and params_equal and masters_equal):
+        raise AssertionError(f"phase21 (c): run_fused {r}")
+    return r
+
+
+def phase21(gen, rate, seed):
+    """(a) training qwen3-1.7b and (d) its evaluation (no kernel: QK-norm),
+    (d) a trained gemma2-9b depth-2 model's evaluation on the kernel route
+    (the launches counted here are phase 21's main path), then the timing
+    of the kernel at qwen3's evaluation shape, (b) the layer gates and the
+    int8 payloads, (c) mamba2-130m's resilience; over 1 GB outliving the
+    trainers fails."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import swa_attention as A
+    t0 = time.perf_counter()
+    ra, model = phase21a(gen, seed)
+    rq = qwen3_evaluation(model, seed)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rd = phase21d(gen, seed)
+    launches = dict(A.launch_counts)
+    cfg = get_config(TRAIN_ARCH)
+    row = wgmma_shape_row(gen, rate, "phase21", f"{TRAIN_ARCH} evaluation",
+                          TRAIN_EVAL_BATCH, cfg.num_heads, cfg.num_kv_heads,
+                          cfg.resolved_head_dim, TRAIN_SEQ)
+    rb = phase21b(gen, seed)
+    rc = phase21c(seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 1e9
+    secs = time.perf_counter() - t0
+    log(f"[phase21] the trainers, models and optimizer states dropped: "
+        f"{left:.3f} GB still allocated; phase 21 took {secs:.1f} s")
+    if left > 1.0:
+        raise AssertionError(f"phase21: {left:.3f} GB outlive the trainers")
+    return dict(a=ra, b=rb, c=rc, d=rd, q=rq, launches=launches,
+                eval_row=row, s=secs)
+
+
+def train_readings(r21) -> dict:
+    """Phase 21's readings for the ``kernels`` line: the wgmma launches of
+    the trained gemma2-9b depth-2 model's evaluation, what the training
+    steps and qwen3-1.7b's evaluation measured (they launch no kernel),
+    and the kernel timed at qwen3's evaluation shape against its plain
+    version."""
+    a, b, c, d, q = (r21[k] for k in "abcdq")
+    return {
+        "launches": r21["launches"]["wgmma"],
+        "eval": {"arch": f"{EVAL_ARCH} depth {EVAL_DEPTH}, trained "
+                         f"{EVAL_STEPS} steps, 1 x {LM_SEQ} tokens"}
+        | {k: d[k] for k in ("loss_rel", "max_dlogits", "top1",
+                             "layer_worst", "s_kernel", "s_einsum",
+                             "launches_kernel", "passes", "fault_passes")}
+        | {"head_swap": {k: d["heads"][k] for k in ("loss_rel",
+                                                    "max_dlogits")}
+           | {"layer_worst": d["heads"]["layer"]["rel"]}},
+        "qwen3_shape": r21["eval_row"],
+        "qwen3_eval": q,
+        "train": {k: a[k] for k in ("params", "step_s", "first_step_s",
+                                    "tokens_per_s", "peak_gb", "busy_share",
+                                    "trace_cost_s", "mfu", "swa_launches")}
+        | {"loss_first": a["history"][0], "loss_last": a["history"][-1]},
+        "layer_gates": {k: b[k] for k in ("grad_worst", "grad_fault_worst",
+                                          "adam_worst", "adam_fault_worst")},
+        "int8_payloads_equal": b["compression"]["payloads_equal"],
+        "resume_equal": c["equal"], "fused_iters": c["fused_iters"],
+        "phase_s": r21["s"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5189,6 +5895,14 @@ def main(argv=None) -> int:
         if count == 0:
             raise AssertionError(f"the LM path never took the {route} "
                                  "route of swa_attention")
+    zero_counts()                            # main path: phase 21
+    r21 = phase21(gen, rate, args.seed)
+    log(f"[main] swa_attention launches on the training path (phase 21: "
+        f"the training steps and {TRAIN_ARCH}'s evaluation none, the "
+        f"trained {EVAL_ARCH} depth-{EVAL_DEPTH} model's evaluation on the "
+        f"kernel route, its planted faults' included): {r21['launches']}")
+    if r21["launches"]["wgmma"] == 0:
+        raise AssertionError("phase 21 never launched the wgmma kernel")
 
     def swa_entry(route, source, **extra):
         """The kernels-line entry of one swa_attention route: its times
@@ -5210,8 +5924,10 @@ def main(argv=None) -> int:
                                  for name, rows in slice11.items()
                                  for dt, row in rows.items()
                                  if row["route"] == route},
-                "phases": {"launched": [12, 13, 17, 18, 19],
-                           "held_against_plain": [11]}}
+                "phases": {"launched": [12, 13, 17, 18, 19] + (
+                               [21] if route == "wgmma" else []),
+                           "held_against_plain": [11] + (
+                               [21] if route == "wgmma" else [])}}
     swa_wgmma = swa_entry(
         "wgmma", "src/repro_torch/kernels/csrc/swa_wgmma.cu",
         takes="bfloat16 at hd 64/128/256",
@@ -5227,7 +5943,7 @@ def main(argv=None) -> int:
             "decode_idle_share": r13["decode_idle"], "iters": r13["iters"],
             "greedy_agree_bf16": r13["agree"]},
         by_shape=fam11, families=family_readings(r17, r18),
-        slice_families=slice_readings(r19))
+        slice_families=slice_readings(r19), train=train_readings(r21))
     swa_core = swa_entry(
         "cuda_core", "src/repro_torch/kernels/csrc/swa_attention.cu",
         takes="float32 at every hd, bfloat16 at hd 16/32/96",

@@ -12,8 +12,8 @@ sharded over a device mesh (``backend="cuda-sharded"``,
 recovery layer of :mod:`repro_torch.resilience`), the same farm over a
 device mesh (``FarmEngine(mesh=...)``: lanes over a mesh axis, or with a
 ``"cuda-sharded"`` loop the composed lanes × spatial farm) and the LM path
-(``configs``, ``models``, ``serve``); further slices are listed in
-ROADMAP.md.
+(``configs``, ``models``, ``serve``, and training: ``data``, ``optim``,
+``train``); further slices are listed in ROADMAP.md.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``, which selects the plain PyTorch path.

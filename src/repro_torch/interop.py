@@ -20,7 +20,13 @@ reference's arrays convert to) and rebuild it in the port's layout:
   Transformer`; :func:`caches_from_reference` — its decode caches (KV and
   SSM ``{"conv", "h"}``) → the port's per-layer cache list;
   :func:`cross_caches_from_reference` — ``prefill_cross_caches``' tree →
-  the port's per-layer cross caches.
+  the port's per-layer cross caches;
+* :func:`reference_tree` — the inverse: the port's tensors by parameter
+  name (a model's parameters, its gradients, an optimizer's masters or
+  moments) as the reference's ``init_params`` tree, unit layers restacked
+  on the rep axis; :func:`named_from_reference` — such a tree's leaves by
+  the port's parameter names (what gradient parity and checkpoints in the
+  reference's leaf order need).
 
 Nothing here imports the JAX package: names and arrays are the interface.
 """
@@ -143,6 +149,8 @@ def reference_layers(cfg: ArchConfig, tree: dict, pattern=None) -> list:
     def rep(sub, r):
         if isinstance(sub, dict):
             return {k: rep(v, r) for k, v in sub.items()}
+        if isinstance(sub, torch.Tensor):
+            return sub[r]
         return np.asarray(sub)[r]
     return list(tree["prefix"]) + [rep(tree["unit"][j], r)
                                    for r in range(reps)
@@ -161,72 +169,49 @@ def _count_leaves(tree) -> int:
     return 1
 
 
-# submodules loaded layer by layer, not by name
-_STACKS = ("layers", "encoder")
-
-
-def _load(module: torch.nn.Module, tree: dict, where: str):
-    """Copy every parameter of ``module`` from the same-named leaf of
-    ``tree``, but those under the ``_STACKS`` submodules; shapes must
-    agree."""
-    names = dict(module.named_parameters(recurse=True))
-    for name, param in names.items():
-        if "." in name and name.split(".")[0] in _STACKS:
-            continue
-        src = tensor_from_numpy(_leaf(tree, name), param.device)
-        if tuple(src.shape) != tuple(param.shape):
-            raise ValueError(f"{where}{name}: reference shape "
-                             f"{tuple(src.shape)} != {tuple(param.shape)}")
-        param.data.copy_(src)
-
-
-def _load_layers(layers: torch.nn.ModuleList, trees: list, where: str):
-    """Load each port layer from its reference subtree, checking that the
-    two hold the same number of leaves."""
-    if len(trees) != len(layers):
-        raise ValueError(f"{where}: the reference holds {len(trees)} layers,"
-                         f" the port {len(layers)}")
-    for i, (layer, tree) in enumerate(zip(layers, trees)):
-        if _count_leaves(tree) != len(list(layer.parameters())):
-            raise ValueError(f"{where}{i}: the reference holds "
-                             f"{_count_leaves(tree)} leaves, the port "
-                             f"{len(list(layer.parameters()))}")
-        _load(layer, tree, f"{where}{i}.")
-
-
 def params_from_reference(cfg: ArchConfig, params_np: dict, *,
                           device=None):
     """The reference's ``init_params(cfg, key, max_position)`` tree, leaves
     converted to numpy, as the port's model on ``device`` (None: the CUDA
-    card); the position table keeps the tree's row count."""
+    card); the position table keeps the tree's row count.  Every leaf is
+    copied under its port name (:func:`named_from_reference`); the two
+    must hold the same leaves, with the same shapes."""
     from .models.transformer import Transformer, encoder_pattern
     dev = resolve_device(device)
     rows = np.shape(params_np["pos_embed"])[0] if "pos_embed" in params_np \
         else 0
     model = Transformer(cfg, device=dev, max_position=rows)  # filled below
+    named = dict(model.named_parameters())
     top = {k: v for k, v in params_np.items()
            if k not in ("prefix", "unit", "encoder")}
-    n_top = sum(1 for n, _ in model.named_parameters()
-                if n.split(".")[0] not in _STACKS)
+    n_top = sum(1 for n in named if n.split(".")[0] not in
+                ("layers", "encoder"))
     if n_top != _count_leaves(top):
         raise ValueError(f"reference top-level leaves {sorted(top)} do not "
                          f"match the port's parameters")
-    _load(model, top, "")
-    _load_layers(model.layers, reference_layers(cfg, params_np), "layers.")
     if cfg.is_encoder_decoder != ("encoder" in params_np):
         raise ValueError(f"{cfg.name}: the reference tree "
                          f"{'lacks' if cfg.is_encoder_decoder else 'has'} "
                          "an encoder")
+    n_ref = n_top + sum(_count_leaves(t) for t in reference_layers(
+        cfg, params_np))
     if cfg.is_encoder_decoder:
         enc = params_np["encoder"]
         if sorted(enc) != ["final_norm", "unit"]:
             raise ValueError(f"reference encoder leaves {sorted(enc)}; want "
                              "final_norm and unit")
-        _load(model.encoder, {"final_norm": enc["final_norm"]}, "encoder.")
-        _load_layers(model.encoder.layers,
-                     reference_layers(cfg, {"unit": enc["unit"]},
-                                      encoder_pattern(cfg)),
-                     "encoder.layers.")
+        n_ref += 1 + sum(_count_leaves(t) for t in reference_layers(
+            cfg, {"unit": enc["unit"]}, encoder_pattern(cfg)))
+    if n_ref != len(named):
+        raise ValueError(f"the reference holds {n_ref} leaves, the port "
+                         f"{len(named)}")
+    for name, arr in named_from_reference(cfg, params_np, named).items():
+        src = tensor_from_numpy(arr, dev)
+        param = named[name]
+        if tuple(src.shape) != tuple(param.shape):
+            raise ValueError(f"{name}: reference shape {tuple(src.shape)} "
+                             f"!= {tuple(param.shape)}")
+        param.data.copy_(src)
     return model
 
 
@@ -246,3 +231,93 @@ def cross_caches_from_reference(cfg: ArchConfig, cross_np: dict, *,
     dev = resolve_device(device)
     return [{k: tensor_from_numpy(v, dev) for k, v in c.items()}
             for c in reference_layers(cfg, cross_np)]
+
+
+def _stack(xs):
+    return torch.stack(xs) if isinstance(xs[0], torch.Tensor) \
+        else np.stack([np.asarray(x) for x in xs])
+
+
+def _nest(flat: dict) -> dict:
+    """``{"a.b": x}`` → ``{"a": {"b": x}}``."""
+    out = {}
+    for dotted, x in flat.items():
+        *path, last = dotted.split(".")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = x
+    return out
+
+
+def _restack(layers: dict, pattern, stack) -> dict:
+    """Per-layer leaves (``{i: {"attn.wq": x, ...}}``, run order) as the
+    reference's ``{"prefix": [...], "unit": [...]}``, unit leaves stacked
+    over the reps (inverse of :func:`reference_layers`)."""
+    prefix, unit, reps = pattern
+    n_pre, n_unit = len(prefix), len(unit)
+    if sorted(layers) != list(range(n_pre + n_unit * reps)):
+        raise ValueError(f"{len(layers)} layers do not fill a pattern of "
+                         f"{n_pre} + {n_unit} x {reps}")
+    units = []
+    for j in range(n_unit):
+        rows = [layers[n_pre + r * n_unit + j] for r in range(reps)]
+        units.append(_nest({k: stack([row[k] for row in rows])
+                            for k in rows[0]}))
+    return {"prefix": [_nest(layers[i]) for i in range(n_pre)],
+            "unit": units}
+
+
+def reference_tree(cfg: ArchConfig, named: dict, *, stack=None) -> dict:
+    """The port's tensors by parameter name (``model.named_parameters()``,
+    or gradients and optimizer state under the same names) as the
+    reference's ``init_params`` tree: top-level leaves by name, the
+    decoder stack as ``prefix`` and ``unit`` (unit layers stacked on a
+    leading rep axis), an encoder as ``{"unit", "final_norm"}``.
+    ``stack`` joins the reps (default ``torch.stack``, ``np.stack`` for
+    numpy leaves)."""
+    from .models.transformer import encoder_pattern, stack_pattern
+    stack = stack or _stack
+    top, layers, enc_top, enc_layers = {}, {}, {}, {}
+    for name, x in named.items():
+        head, _, rest = name.partition(".")
+        if head == "layers":
+            i, _, leaf = rest.partition(".")
+            layers.setdefault(int(i), {})[leaf] = x
+        elif head == "encoder" and rest.startswith("layers."):
+            i, _, leaf = rest[len("layers."):].partition(".")
+            enc_layers.setdefault(int(i), {})[leaf] = x
+        elif head == "encoder":
+            enc_top[rest] = x
+        else:
+            top[name] = x
+    tree = _nest(top)
+    tree.update(_restack(layers, stack_pattern(cfg), stack))
+    if enc_layers or enc_top:
+        enc = _restack(enc_layers, encoder_pattern(cfg), stack)
+        del enc["prefix"]
+        tree["encoder"] = {**enc, **_nest(enc_top)}
+    return tree
+
+
+def named_from_reference(cfg: ArchConfig, tree: dict, names) -> dict:
+    """The leaves of a reference ``init_params``-shaped tree (numpy
+    leaves) under the port's parameter ``names``: each unit leaf sliced at
+    its rep."""
+    from .models.transformer import encoder_pattern
+    layers = reference_layers(cfg, tree)
+    enc = (reference_layers(cfg, {"unit": tree["encoder"]["unit"]},
+                            encoder_pattern(cfg))
+           if "encoder" in tree else [])
+    out = {}
+    for name in names:
+        head, _, rest = name.partition(".")
+        if head == "layers":
+            i, _, leaf = rest.partition(".")
+            out[name] = _leaf(layers[int(i)], leaf)
+        elif head == "encoder" and rest.startswith("layers."):
+            i, _, leaf = rest[len("layers."):].partition(".")
+            out[name] = _leaf(enc[int(i)], leaf)
+        else:
+            out[name] = _leaf(tree, name)
+    return out

@@ -135,8 +135,13 @@ def ssd_chunked(x, dt, A, B, C, D, *, dims, h0=None):
     # intra-chunk: y_i = sum_{j<=i} exp(La_i - La_j) (C_i·B_j) dt_j x_j
     CB = _einsum("bcqhn,bckhn->bchqk", Cc, Bc)            # (Bt,nc,nh,Q,Q)
     Li = La.permute(0, 1, 3, 2)                           # (Bt,nc,nh,Q)
-    decay = torch.exp(Li[..., :, None] - Li[..., None, :])
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    # the exponent is masked before the exp (the reference masks after):
+    # above the diagonal La_i - La_j > 0 overflows once a chunk's decay
+    # spans ~88, and the where's backward would take 0 · inf = NaN into
+    # every gradient; the kept entries' values are the same
+    decay = torch.exp(torch.where(mask, Li[..., :, None] - Li[..., None, :],
+                                  -math.inf))
     kernel = torch.where(mask, CB * decay, 0.0)
     del CB, decay
     dx = dtc[..., None] * xc                              # (Bt,nc,Q,nh,hd)

@@ -8,9 +8,18 @@ the order the scan runs them — the prefix, then rep by rep each unit layer
 (layer ``len(prefix) + r·len(unit) + j`` is unit layer j of rep r) — and
 a Python loop applies them.  An encoder-decoder's decoder stack follows
 ``decoder_pattern()`` and its encoder is a stack of its own
-(:class:`Encoder`).  ``remat`` and the sharding hook are no-ops for a
-forward on one device; the expert-parallel hook is
+(:class:`Encoder`).  With ``cfg.remat``, a forward that builds a graph
+checkpoints every layer (:func:`torch.utils.checkpoint.checkpoint`): the
+backward keeps each layer's input and recomputes the rest, where the
+reference's ``block_outs`` policy keeps the blocks' outputs of each
+scanned unit — the same values either way.  The activation-sharding hook
+is :func:`set_sharding_hook` (the reference's two tags, for
+``attn_sequence_parallel`` configs); the expert-parallel hook is
 :func:`set_moe_parallel`.
+
+Parameters are frozen (``requires_grad=False``), so serving and
+evaluation build no graph; a training step unfreezes them for its own
+duration (:func:`repro_torch.train.objective.trainable`).
 
 Entry points (``device=None`` is the CUDA card; the CPU only when asked):
     init_params(cfg, seed=0, max_position=0, device=None) — random weights
@@ -31,13 +40,14 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig, LayerSpec
 from ..device import resolve_device, to_device
 from . import ssm as ssm_mod
 from .attention import Attention, attention, init_kv_cache
 from .layers import (MLP, MoE, mlp, moe, normal, rms_norm,
-                     sinusoidal_positions, zeros)
+                     sinusoidal_positions, softcap, zeros)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 # rows of the absolute position table when init_params gets max_position=0
@@ -49,10 +59,25 @@ DEFAULT_MAX_POSITION = 4096
 # None -> the single-device dispatch of layers.moe.
 _MOE_PARALLEL = None
 
+# Optional activation-sharding hook (identity when None, so the model stays
+# mesh-agnostic).  Signature: hook(tag, x) -> x, tags "attn_in" and
+# "attn_out", applied around self-attention when the config sets
+# ``attn_sequence_parallel`` (context-parallel attention).
+_SHARDING_HOOK = None
+
 
 def set_moe_parallel(fn):
     global _MOE_PARALLEL
     _MOE_PARALLEL = fn
+
+
+def set_sharding_hook(fn):
+    global _SHARDING_HOOK
+    _SHARDING_HOOK = fn
+
+
+def _hook(tag: str, x):
+    return _SHARDING_HOOK(tag, x) if _SHARDING_HOOK is not None else x
 
 
 def check_family(cfg: ArchConfig):
@@ -220,6 +245,8 @@ def apply_layer(cfg: ArchConfig, spec: LayerSpec, p: Layer, x, *,
     aux = {}
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if spec.kind == "attn":
+        if cfg.attn_sequence_parallel:
+            h = _hook("attn_in", h)
         out, new_cache = attention(
             p.attn, h, positions=positions, num_heads=cfg.num_heads,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
@@ -228,6 +255,8 @@ def apply_layer(cfg: ArchConfig, spec: LayerSpec, p: Layer, x, *,
             attn_softcap=cfg.attn_softcap, qk_norm=cfg.qk_norm,
             norm_eps=cfg.norm_eps, kv_cache=cache, cache_pos=cache_pos,
             kv_len=kv_len)
+        if cfg.attn_sequence_parallel:
+            out = _hook("attn_out", out)
     else:
         out, new_cache = ssm_mod.mamba2_block(
             p.ssm, h, dims=ssm_dims(cfg), norm_eps=cfg.norm_eps,
@@ -262,6 +291,13 @@ def apply_layer(cfg: ArchConfig, spec: LayerSpec, p: Layer, x, *,
     return x + out, new_cache, aux
 
 
+def _remat(cfg: ArchConfig, p: Layer, x) -> bool:
+    """Checkpoint this layer: ``cfg.remat`` and a forward that builds a
+    graph through it."""
+    return cfg.remat and torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for t in p.parameters()))
+
+
 def zero_aux(device) -> dict:
     """The MoE aux terms at zero (their sum over a stack without MoE)."""
     z = torch.zeros((), dtype=torch.float32, device=device)
@@ -293,10 +329,14 @@ def run_stack(cfg: ArchConfig, stack, x, *, positions, causal=True,
         c = caches[i] if caches is not None else None
         xc = cross_caches[i] if cross_caches is not None and i >= n_pre \
             else None
-        x, nc, aux = apply_layer(cfg, spec, p, x, positions=positions,
-                                 causal=causal, cache=c, cache_pos=cache_pos,
-                                 enc_out=enc_out, cross_cache=xc,
-                                 kv_len=kv_len)
+        kw = dict(positions=positions, causal=causal, cache=c,
+                  cache_pos=cache_pos, enc_out=enc_out, cross_cache=xc,
+                  kv_len=kv_len)
+        if _remat(cfg, p, x):
+            x, nc, aux = checkpoint(apply_layer, cfg, spec, p, x,
+                                    use_reentrant=False, **kw)
+        else:
+            x, nc, aux = apply_layer(cfg, spec, p, x, **kw)
         new_caches.append(nc)
         if i < n_pre:
             aux_sum = _acc_aux(aux_sum, aux)
@@ -375,15 +415,18 @@ def embed_inputs(cfg: ArchConfig, params: Transformer, tokens,
 
 def lm_head(cfg: ArchConfig, params: Transformer, x):
     """Final norm, the logits product in the model dtype, then float32 and
-    the final softcap (applied in place: the logits are the largest
-    tensor of a scoring forward)."""
+    the final softcap (applied in place where no graph is built: the
+    logits are the largest tensor of a scoring forward; autograd cannot
+    take ``tanh_`` followed by ``mul_`` of its output)."""
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = torch.einsum("bsd,vd->bsv", x, params.embed)
     else:
         logits = torch.einsum("bsd,dv->bsv", x, params.unembed)
     logits = logits.float()
-    if cfg.final_softcap:
+    if cfg.final_softcap and logits.requires_grad:
+        logits = softcap(logits, cfg.final_softcap)
+    elif cfg.final_softcap:
         logits.div_(cfg.final_softcap).tanh_().mul_(cfg.final_softcap)
     return logits
 

@@ -19,8 +19,10 @@ A lane farm over a mesh (:class:`repro_torch.core.streaming.FarmEngine`
 with ``mesh=``) spreads its slots over one mesh axis: :func:`axis_devices`
 lists that axis's devices, :func:`local_slot` maps a slot to its lane shard
 and :func:`slice_partition` gives one lane shard's spatial partition.  The
-LM parts of the reference module (``param_spec`` and the rest) belong to
-later slices (ROADMAP.md queue A8, A10).
+LM parts of the reference module (``param_spec``, ``zero1_spec`` and the
+rest: annotations for a model sharded over a mesh) have no counterpart:
+the port trains and serves a model on one card, and a host batch splits
+over a mesh's ``"data"`` axis by :func:`repro_torch.data.shard_batch`.
 """
 from __future__ import annotations
 

@@ -1117,3 +1117,104 @@ def test_cuda_continuous_engine_matches_solo_generate(cuda_f32):
             max_new_tokens=r.max_new_tokens), cache_dtype=torch.float32)
         assert got[r.rid] == solo[0, :int(L[0])].tolist()
     assert serve(0.7) == serve(0.7)
+
+
+# ---------------------------------------------------------------------------
+# training: AdamW and int8 compression on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_adamw_update_matches_the_cpu(cuda, dtype):
+    """Three AdamW updates on the card against the same on the CPU: the
+    masters within 1e-7 (a step moves a weight by lr = 1e-3; the card's
+    sqrt and divisions may round one ulp apart), the parameters the
+    masters cast to their dtype exactly, the steps equal."""
+    from repro_torch.optim import AdamW, cosine_with_warmup
+    rng = np.random.default_rng(50)
+    shapes = {"w": (64, 48), "b": (48,), "emb": (100, 16)}
+    p0 = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: rng.normal(size=s).astype(np.float32) * 3
+              for k, s in shapes.items()} for _ in range(3)]
+    opt = AdamW(lr=cosine_with_warmup(1e-3, 1, 3), weight_decay=0.01)
+    out = {}
+    for dev in ("cpu", cuda):
+        params = {k: torch.tensor(v).to(dev, dtype) for k, v in p0.items()}
+        state = opt.init(params)
+        for g in grads:
+            opt.update({k: torch.tensor(v).to(dev, dtype)
+                        for k, v in g.items()}, state, params)
+        out[str(dev)] = (params, state)
+    (pc, sc), (pg, sg) = out["cpu"], out[str(cuda)]
+    assert int(sg.step) == int(sc.step) == 3
+    for k in shapes:
+        torch.testing.assert_close(sg.master[k].cpu(), sc.master[k],
+                                   rtol=0, atol=1e-7)
+        assert pg[k].dtype == dtype
+        assert torch.equal(pg[k].cpu(), sg.master[k].cpu().to(dtype))
+        assert sg.master[k].data_ptr() != pg[k].data_ptr()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peers", [1, 2, 3, 4])
+def test_cuda_int8_payloads_equal_the_cpu(cuda, peers):
+    """``quantize_int8`` and the error-feedback payloads on the card give
+    the CPU's int8 values and scales exactly (the scale divides by a
+    tensor, not by a host constant); the summed gradient too."""
+    from repro_torch.train.compression import (ef_int8_payloads,
+                                               ef_int8_psum, quantize_int8)
+    rng = np.random.default_rng(51 + peers)
+    x = torch.tensor(rng.normal(size=(1 << 16,)).astype(np.float32) * 7)
+    qc, sc = quantize_int8(x, peers)
+    qg, sg = quantize_int8(x.to(cuda), peers)
+    assert torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu(), sc)
+    gs = [torch.tensor(rng.normal(size=(4096,)).astype(np.float32))
+          for _ in range(peers)]
+    es = [torch.tensor(rng.normal(size=(4096,)).astype(np.float32) * 1e-3)
+          for _ in range(peers)]
+    qsc, scc, _ = ef_int8_payloads(gs, es)
+    qsg, scg, _ = ef_int8_payloads([g.to(cuda) for g in gs],
+                                   [e.to(cuda) for e in es])
+    assert torch.equal(scg.cpu(), scc)
+    for a, b in zip(qsg, qsc):
+        assert torch.equal(a.cpu(), b)
+    total_c, _ = ef_int8_psum(gs, es)
+    total_g, _ = ef_int8_psum([g.to(cuda) for g in gs],
+                              [e.to(cuda) for e in es])
+    assert torch.equal(total_g.cpu(), total_c)
+
+
+@pytest.mark.cuda
+def test_cuda_training_step_takes_the_einsum_route(cuda_f32):
+    """A reduced gemma2-9b train step on the card (sliding windows and
+    S = 128: the forward alone would take the kernel) launches no
+    attention kernel, leaves the flash flag as it was, and gives the
+    CPU's loss and grad norm (rtol 1e-5, TF32 off) and masters (atol
+    1e-7, the step moving a weight by lr = 1e-3, on all but 1e-3 of
+    them: an H100 read 39 of 222,272 apart)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import attention as TA
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import AdamW
+    from repro_torch.train import TrainConfig, Trainer
+    cfg = get_reduced("gemma2-9b")
+    batch = SyntheticLM(cfg.vocab_size, 128, 4, seed=3).batch_at(0)
+    out = {}
+    for dev in ("cpu", cuda_f32):
+        model = TT.init_params(cfg, seed=0, device="cpu").to(dev)
+        opt = AdamW(lr=1e-3)
+        tr = Trainer(cfg, TrainConfig(accum=2), opt, device=dev)
+        before = swa_launches()
+        _, state, m = tr.train_step(model, opt.init(model), batch)
+        assert swa_launches() == before and TA.USE_FLASH_SWA is None
+        out[str(dev)] = (state, m)
+    (sc, mc), (sg, mg) = out["cpu"], out[str(cuda_f32)]
+    for key in ("total_loss", "grad_norm"):
+        torch.testing.assert_close(mg[key].cpu(), mc[key], rtol=1e-5, atol=0)
+    # Adam's first step moves each weight by about lr·sign(g): a gradient
+    # entry within rounding of zero may take either sign on either device
+    off = sum(int(((sg.master[k].cpu() - sc.master[k]).abs() > 1e-7).sum())
+              for k in sc.master)
+    assert off <= 1e-3 * sum(t.numel() for t in sc.master.values()), off

@@ -39,7 +39,9 @@ def test_scan_covers_the_port():
             "attention.py", "layers.py", "transformer.py", "objective.py",
             "engine.py", "base.py", "gemma2_9b.py", "streaming.py",
             "recovery.py", "faults.py", "video_restoration.py",
-            "specs.py", "halo.py", "moe_parallel.py", "ssm.py"} <= names
+            "specs.py", "halo.py", "moe_parallel.py", "ssm.py",
+            "pipeline.py", "adam.py", "schedule.py", "trainer.py",
+            "checkpoint.py", "compression.py", "train_lm.py"} <= names
 
 
 @pytest.fixture
@@ -101,6 +103,32 @@ def test_lm_entry_points_raise_without_a_card(cpu_only_host):
         generate(cfg, model, tokens, GenerateConfig(max_new_tokens=2))
     logits, _ = T.forward(cfg, model, {"tokens": tokens}, device="cpu")
     assert logits.device.type == "cpu"
+
+
+def test_training_entry_points_raise_without_a_card(cpu_only_host, tmp_path):
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import Prefetcher, SyntheticLM, shard_batch
+    from repro_torch.examples import train_lm
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamW
+    from repro_torch.train import TrainConfig, Trainer, grad_accum_step
+    cfg = get_reduced("qwen3-1.7b")
+    batch = SyntheticLM(cfg.vocab_size, 8, 2).batch_at(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        shard_batch(batch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Prefetcher(iter([batch]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, TrainConfig(steps=1), AdamW())
+    model = T.init_params(cfg, device="cpu")        # asked for: fine
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        grad_accum_step(cfg, model, batch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_lm.main(["--preset", "tiny", "--steps", "1",
+                       "--ckpt-dir", str(tmp_path)])
+    grads, loss, _ = grad_accum_step(cfg, model, batch, device="cpu")
+    assert loss.device.type == "cpu" and len(grads) == len(
+        list(model.parameters()))
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "jamba-v0.1-52b"])
