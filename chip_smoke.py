@@ -241,6 +241,26 @@ phi-3-vision-4.2b) — on one CUDA card at full size:
      run_fused over 4 batches against the uninterrupted run's checkpoint
      of step 4 (iters, last loss, parameters and masters bit-equal); over
      1 GB outliving the trainers fails;
+ 22. the launch layer (after phase 21; its host-only work, (a) and two
+     processes beside it, runs first and ends before (b)): (a) 21(a)'s
+     cell (qwen3-1.7b, 8 x 2048, accum 4) priced on the meta device for
+     ``make_host_mesh(1, 1)`` (``launch.dryrun.run_cell``) against 21(a)'s
+     readings: the predicted peak within 10% of max_memory_allocated, the
+     median step no faster than 0.95 x the predicted bound max(t_c, t_m),
+     the counted FLOPs beside 21(a)'s, mfu = model_flops / (step x
+     PEAK_FLOPS); the (1, 1) verdict (fits the card or not) of every
+     full-size cell: arguments exact, the temporaries traced for the
+     decode cells whose arguments fit;
+     (b) the stencil dry run's Jacobi (jac, max |d| < 1e-4) on "cuda": the
+     paper's 16384^2 grid, 50 sweeps, and one (16, 16) pod device's 1024^2
+     block, 200 sweeps, each against the plain path on the card (equal
+     iters, grids and the last check's max |d| within 1e-5), ms a sweep
+     beside the dry run's t_m; (c)
+     ``launch.train`` at full width (qwen3-1.7b, 3 steps of 8 x 128: no
+     fault, a finite loss), ``launch.serve --reduced`` (gemma2-9b), both
+     CLIs' ``--dry-run`` on one cell (deepseek-moe-16b decode_32k,
+     whisper-base train_4k), and the quickstart on the card, whose
+     integers must equal a CPU run's;
   6. torch.profiler breakdown of the kernel loops (three runs on "cuda",
      one on "cuda-multistep" at T=4): device time by kernel and the
      device's idle share;
@@ -249,7 +269,7 @@ phi-3-vision-4.2b) — on one CUDA card at full size:
      1080x1920), the wrapper's choice marked.
 
 Every phase runs, at the sizes above, in the order listed (phase 20
-inside phases 12-13, phase 21 after 19).  Phases 2-4, 9,
+inside phases 12-13, phases 21 and 22 after 19).  Phases 2-4, 9,
 10 and 14-16 are the stencil main path: the kernel launch counts are
 zeroed just before phase 2 and read just after phase 16 (the single-step
 launches also by shape, the multistep launches by T).  Phases 12-13, 20
@@ -261,7 +281,9 @@ at hd 64/128/256 must take the wgmma route and the f32 ones and bf16 at hd
 ``kernels`` line.  Phase 21 is the training path: the counts are zeroed
 just before it and read after its evaluations (d), before the kernel is
 timed at qwen3's shape; the wgmma route must have launched (gemma2's
-evaluation).  Every phase's
+evaluation).  Phase 22's (b) and (c) are the launch path: the counts are
+zeroed before (b) and read after (c); stencil_sweep must have launched.
+Every phase's
 failure propagates: the
 exit code is non-zero and the final ok line is not printed.  Without a
 CUDA card, or without the repository around it, the script exits non-zero
@@ -311,14 +333,17 @@ TOL_LOSS_F32 = 1e-5    # ... and their lm_loss (relative)
 LM_ARCH = "gemma2-9b"  # phases 12-13: full width
 LM_SEQ = 8192          # phase 12: the model's context
 SERVE_PROMPT, SERVE_NEW = 4576, 32   # phase 13: max_seq 4608 > window 4096
-# published H100 device-memory rates (NVIDIA data sheets), by part
-MEM_RATE = {"PCIe": 2.0e12, "NVL": 3.9e12, "SXM": 3.35e12}
-FP32_RATE = 67e12      # H100 SXM float32 outside the tensor cores
 # flops of one Helmholtz cell-sweep as csrc/elementals.cuh computes it (an
 # FMA counts two): three adds, the dx^2 f + s FMA, and div_fast's four FMAs
 # and one multiply (its reciprocal runs on the special-function unit)
 HELMHOLTZ_CELL_FLOPS = 14
-BF16_RATE = 989e12     # H100 SXM bf16 tensor cores, dense
+
+sys.path.insert(0, str(ROOT / "src"))
+if (ROOT / "src" / "repro_torch").is_dir():   # else main() says so, exit 2
+    # the H100 datasheet rates, one definition for the dry run and here:
+    # the device-memory rate by part (mem_rate), bf16 tensor cores dense
+    # (BF16_RATE), float32 outside the tensor cores (FP32_RATE)
+    from repro_torch.launch.roofline import BF16_RATE, FP32_RATE, mem_rate
 
 
 def log(*a):
@@ -330,13 +355,6 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-
-
-def mem_rate(name: str) -> float:
-    for key, rate in MEM_RATE.items():
-        if key in name:
-            return rate
-    return MEM_RATE["SXM"]
 
 
 def sync():
@@ -5779,6 +5797,347 @@ def train_readings(r21) -> dict:
         "phase_s": r21["s"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the launch layer
+# ---------------------------------------------------------------------------
+
+DRY_OUT = ROOT / "runs" / "dryrun_smoke"   # the dry runs' records (ignored)
+DRY_CLI_OUT = ROOT / "runs" / "dryrun_cli_torch"   # the CLIs' records
+# 22(a): the dry run's predicted peak against 21(a)'s max_memory_allocated
+# (fixed before the first reading), and the measured median step against
+# the predicted bound max(t_c, t_m): a step faster than the bound means a
+# wrong count
+TOL_PEAK_REL = 0.10
+MIN_STEP_OVER_BOUND = 0.95
+HOST_CELL = f"train_{TRAIN_SEQ // 1024}k"   # 21(a)'s cell: 8 x 2048
+# the (1, 1) table: every cell's arguments exact; the temporaries traced
+# only for a decode cell whose arguments fit the card (a train cell takes
+# 128-256 microbatches on one device, a prefill cell up to 7 s: theirs are
+# not traced, for the script's time)
+# 22(b): (grid, sweeps) of the dry run's Jacobi on the card
+STENCIL_RUNS = ((16384, 50), (1024, 200))
+TOL_STENCIL = 1e-5
+# 22(c): the CLIs' dry runs, one cell each (the cheapest train cell)
+TRAIN_DRY_ARCH = "whisper-base"
+SERVE_DRY_ARCH, SERVE_DRY_SHAPE = "deepseek-moe-16b", "decode_32k"
+LAUNCH_TRAIN_STEPS = 3
+
+
+def start_dry_runs() -> dict:
+    """The host-only work of 22(c) as processes, started with phase 22
+    and waited for before (b), so no reading of another phase or of (b)
+    and (c) shares the host with them: ``launch.train --dry-run`` as a
+    user runs it (on the card by default; a dry run allocates nothing
+    there) and the quickstart on the CPU.  One thread each; stopped at
+    exit."""
+    import atexit
+    import os
+    DRY_OUT.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    py = sys.executable
+    quick = ("import json\nfrom repro_torch.examples import quickstart\n"
+             "print(json.dumps(quickstart.main(['--device', 'cpu'])))")
+    cmds = {"train_dry_run": [py, "-m", "repro_torch.launch.train",
+                              "--arch", TRAIN_DRY_ARCH, "--dry-run"],
+            "quickstart_cpu": [py, "-c", quick]}
+    procs = {}
+    for name, cmd in cmds.items():
+        out = open(DRY_OUT / f"{name}.log", "w")
+        procs[name] = (subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
+                                        stderr=subprocess.STDOUT), out)
+    atexit.register(stop_dry_runs, procs)
+    return procs
+
+
+def stop_dry_runs(procs):
+    for p, out in procs.values():
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+        out.close()
+
+
+def finish_all(procs, t0, timeout=300) -> dict:
+    """{name: (exit code, output, seconds from ``t0`` to its end)} of the
+    started processes, waiting for every one."""
+    done = {}
+    while len(done) < len(procs):
+        for name, (p, _) in procs.items():
+            if name not in done and p.poll() is not None:
+                done[name] = (p.returncode,
+                              (DRY_OUT / f"{name}.log").read_text(),
+                              time.perf_counter() - t0)
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"phase22: host processes still running "
+                                 f"after {timeout} s: "
+                                 f"{sorted(set(procs) - set(done))}")
+        time.sleep(0.05)
+    return done
+
+
+def dry_record(rec) -> dict:
+    """A dry run's record (or the path of its JSON), which must be ok."""
+    if not isinstance(rec, dict):
+        rec = json.loads(Path(rec).read_text())
+    if not rec.get("ok"):
+        raise AssertionError(f"phase22: dry run {rec.get('arch')} "
+                             f"{rec.get('shape')} failed: {rec.get('error')}")
+    return rec
+
+
+def phase22a(card, r21):
+    """The dry run's prediction of 21(a)'s cell on one device against the
+    card's readings, and the (1, 1) table: host-only, in this process,
+    while :func:`start_dry_runs`' processes run (the meta device's trace
+    dispatches op by op on the host: ~10 s for 21(a)'s training step)."""
+    import torch
+    from repro_torch.configs import ALL_ARCHS, get_config
+    from repro_torch.launch import cells as C
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.roofline import PEAK_FLOPS
+    t0 = time.perf_counter()
+    rec = dry_record(D.run_cell(
+        TRAIN_ARCH, C.ShapeCell(HOST_CELL, "train", TRAIN_SEQ, TRAIN_BATCH),
+        "host", str(DRY_OUT / "host"), force=True, verbose=False,
+        device="cpu"))
+    host_s = time.perf_counter() - t0
+    a, mem, rf, an = r21["a"], rec["memory"], rec["roofline"], \
+        rec["analyzer"]
+    pred_gb = mem["peak_bytes_per_device"] / 1e9
+    peak_rel = (pred_gb - a["peak_gb"]) / a["peak_gb"]
+    bound = max(rf["t_compute"], rf["t_memory"])
+    counted = an["flops_per_device"]
+    mfu = rec["model_flops"] / (a["step_s"] * PEAK_FLOPS)
+    r = dict(pred_peak_gb=pred_gb, peak_gb=a["peak_gb"], peak_rel=peak_rel,
+             args_gb=mem["analytic_args_bytes_per_device"] / 1e9,
+             temp_gb=mem["temp_bytes_per_device"] / 1e9,
+             t_compute=rf["t_compute"], t_memory=rf["t_memory"],
+             bound_s=bound, step_s=a["step_s"],
+             step_over_bound=a["step_s"] / bound, counted_flops=counted,
+             train_flops=a["flops"], flops_ratio=counted / a["flops"],
+             model_flops=rec["model_flops"], mfu=mfu,
+             useful_ratio=rf["useful_ratio"], fraction=rf["fraction"],
+             accum=rec["meta"]["accum"], trace_s=rec["trace_s"],
+             host_s=host_s, ops=an["op_count"])
+    log(f"[phase22] (a) {TRAIN_ARCH} {HOST_CELL} ({TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, accum {r['accum']}) priced on the meta device for "
+        f"one card (datasheet rates) against 21(a) on {card}: peak "
+        f"predicted {pred_gb:.2f} GB (arguments {r['args_gb']:.2f} + "
+        f"traced temporaries {r['temp_gb']:.2f}) vs max_memory_allocated "
+        f"{a['peak_gb']:.2f} GB ({peak_rel:+.4f}, limit "
+        f"{TOL_PEAK_REL}); bound max(t_c {rf['t_compute']:.4f}, t_m "
+        f"{rf['t_memory']:.4f} unfused) = {bound:.4f} s vs the median step "
+        f"{a['step_s']:.4f} s ({r['step_over_bound']:.3f}x the bound, "
+        f"limit {MIN_STEP_OVER_BOUND}); counted {counted / 1e12:.2f} "
+        f"TFLOP vs 21(a)'s train_flops {a['flops'] / 1e12:.2f} (ratio "
+        f"{r['flops_ratio']:.4f}); mfu = model_flops / (step x PEAK_FLOPS) "
+        f"= {mfu:.4f} (useful_ratio {rf['useful_ratio']:.4f}, fraction "
+        f"{rf['fraction']:.4f}); {r['ops']} ops traced in {r['trace_s']} s "
+        f"({host_s:.1f} s for the cell)")
+    if abs(peak_rel) > TOL_PEAK_REL:
+        raise AssertionError(f"phase22 (a): predicted peak {pred_gb:.2f} GB "
+                             f"against {a['peak_gb']:.2f} GB measured")
+    if a["step_s"] < MIN_STEP_OVER_BOUND * bound:
+        raise AssertionError(f"phase22 (a): the step {a['step_s']:.4f} s "
+                             f"beats the predicted bound {bound:.4f} s")
+    # the (1, 1) table
+    total = torch.cuda.get_device_properties(0).total_memory
+    host = make_host_mesh(1, 1, device="cpu")
+    rows, traced, t0 = [], 0, time.perf_counter()
+    for arch in ALL_ARCHS:
+        cfg = get_config(arch)
+        for shape in C.SHAPES:
+            if C.skip_reason(cfg, shape):
+                continue
+            _, cell_args, meta = C.build_cell(cfg, shape, host)
+            args = D._sharded_arg_bytes(cell_args, meta["specs"], host)
+            del cell_args
+            temp = None
+            if args > total:
+                verdict = "no (arguments alone)"
+            elif C.SHAPES[shape].kind == "decode":
+                m = dry_record(D.run_cell(
+                    arch, shape, "host", str(DRY_OUT / "table"), force=True,
+                    verbose=False, device="cpu"))["memory"]
+                temp, traced = m["temp_bytes_per_device"], traced + 1
+                verdict = "fits" if args + temp <= total else "no"
+            else:
+                verdict = "not decided (temporaries not traced)"
+            rows.append(dict(arch=arch, shape=shape, args_gb=args / 1e9,
+                             temp_gb=None if temp is None else temp / 1e9,
+                             verdict=verdict))
+    log(f"[phase22] (a) every full-size cell on make_host_mesh(1, 1), "
+        f"{total / 1e9:.2f} GB on {card} (cut to arguments alone for the "
+        f"train and prefill cells; the {traced} decode cells whose "
+        f"arguments fit traced; the table took "
+        f"{time.perf_counter() - t0:.1f} s):")
+    for row in rows:
+        temp = "not traced" if row["temp_gb"] is None \
+            else f"{row['temp_gb']:9.2f} GB"
+        log(f"[phase22]   {row['arch']:20s} {row['shape']:12s} arguments "
+            f"{row['args_gb']:9.2f} GB, temporaries {temp:>12s}: "
+            f"{row['verdict']}")
+    r["table"] = rows
+    return r
+
+
+def phase22b(card, gen):
+    """The stencil dry run's Jacobi on the card: the paper's 16384² grid
+    and one pod device's 1024² block, each held against the plain path on
+    the card, ms a sweep beside the dry run's t_m."""
+    import torch
+    from repro_torch.launch import stencil_dryrun as SD
+    pod = SD.plan(16384)                 # the (16, 16) pod: 1024² a device
+    rows = {}
+    for n, sweeps in STENCIL_RUNS:
+        plan = pod if n == pod["block"][0] else SD.plan(n, mesh_shape=(1, 1))
+        t_m = plan["sweep"]["t_memory"]
+        u0 = torch.randn((n, n), generator=gen, device=DEVICE)
+        kern = SD.jacobi_loop(sweeps, backend="cuda", device=DEVICE)
+        kern.run(u0)                                       # first launch
+        res, secs = wall(lambda: kern.run(u0))
+        plain = SD.jacobi_loop(sweeps, backend="torch", device=DEVICE)
+        want, secs_p = wall(lambda: plain.run(u0))
+        err = max_err(res.a, want.a)
+        r = dict(n=n, sweeps=sweeps, iters=int(res.iters),
+                 plain_iters=int(want.iters), err=err,
+                 ms_sweep=secs / int(res.iters) * 1e3,
+                 plain_ms_sweep=secs_p / int(want.iters) * 1e3,
+                 t_m_ms=t_m * 1e3, t_c_ms=plan["sweep"]["t_compute"] * 1e3,
+                 t_x_ms=(pod["sweep"]["t_collective"] * 1e3
+                         if plan is pod else None))
+        r["over_t_m"] = r["ms_sweep"] / r["t_m_ms"]
+        rows[n] = r
+        where = ("one (16, 16) pod device's block" if plan is pod
+                 else "the whole grid on one card")
+        log(f"[phase22] (b) jac {n}x{n} ({where}), {sweeps} sweeps on "
+            f"'cuda' ({card}): {r['ms_sweep']:.4f} ms a sweep (wall, a host "
+            f"read a check) against the dry run's t_m {r['t_m_ms']:.4f} ms "
+            f"({r['over_t_m']:.1f}x; t_c {r['t_c_ms']:.5f} ms"
+            + (f", t_x {r['t_x_ms']:.5f} ms" if r["t_x_ms"] else "")
+            + f"); plain {r['plain_ms_sweep']:.4f} ms a sweep; iters "
+            f"{r['iters']} / {r['plain_iters']}, max|d| {err!r} (limit "
+            f"{TOL_STENCIL})")
+        r["reduced"], r["plain_reduced"] = (float(res.reduced),
+                                            float(want.reduced))
+        r["reduced_err"] = abs(r["reduced"] - r["plain_reduced"])
+        log(f"[phase22] (b) jac {n}x{n}: the last check's max|Δ| "
+            f"{r['reduced']!r} on 'cuda' vs {r['plain_reduced']!r} plain "
+            f"(|d| {r['reduced_err']!r}, limit {TOL_STENCIL})")
+        if not (r["iters"] == r["plain_iters"] == sweeps
+                and err <= TOL_STENCIL and r["reduced_err"] <= TOL_STENCIL):
+            raise AssertionError(f"phase22 (b): {n}x{n} differs from plain "
+                                 f"({r})")
+        del u0, res, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase22c(card, done):
+    """The entry points as a user runs them: ``launch.train`` at full
+    width, ``launch.serve --reduced``, both CLIs' ``--dry-run`` on one
+    cell, and the quickstart on the card against the CPU's."""
+    import gc
+    import io
+    import re
+    import torch
+    from repro_torch.examples import quickstart
+    from repro_torch.launch import serve as LS
+    from repro_torch.launch import train as LT
+
+    def run(main, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc, secs = wall(lambda: main(argv))
+        for line in buf.getvalue().splitlines():
+            log(f"[phase22]   {line}")
+        return rc, secs, buf.getvalue()
+    r = {}
+    rc, secs, text = run(LT.main, ["--arch", TRAIN_ARCH, "--steps",
+                                   str(LAUNCH_TRAIN_STEPS)])
+    m = re.search(r"(\d+) steps, (\d+) faults, loss (\S+) -> (\S+)", text)
+    r["train"] = dict(rc=rc, s=secs, steps=int(m[1]), faults=int(m[2]),
+                      loss_first=float(m[3]), loss_last=float(m[4]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    rc_s, secs_s, text_s = run(LS.main, ["--arch", LM_ARCH, "--reduced"])
+    r["serve"] = dict(rc=rc_s, s=secs_s)
+    with contextlib.chdir(ROOT):         # the CLI writes under its cwd
+        rc_d, secs_d, _ = run(LS.main, ["--arch", SERVE_DRY_ARCH, "--shape",
+                                        SERVE_DRY_SHAPE, "--dry-run"])
+    sd = dry_record(DRY_CLI_OUT
+                    / f"{SERVE_DRY_ARCH}__{SERVE_DRY_SHAPE}__pod.json")
+    rc_t, text_t, _ = done["train_dry_run"]
+    td = dry_record(DRY_CLI_OUT / f"{TRAIN_DRY_ARCH}__train_4k__pod.json")
+    r["dry_runs"] = {
+        f"serve {SERVE_DRY_ARCH} {SERVE_DRY_SHAPE}": dict(
+            rc=rc_d, s=secs_d, row=sd["roofline"]),
+        f"train {TRAIN_DRY_ARCH} train_4k": dict(rc=rc_t,
+                                                 row=td["roofline"])}
+    qbuf = io.StringIO()
+    with contextlib.redirect_stdout(qbuf):
+        q_card, secs_q = wall(lambda: quickstart.main([]))
+    for line in qbuf.getvalue().splitlines():
+        log(f"[phase22]   {line}")
+    rc_q, text_q, _ = done["quickstart_cpu"]
+    q_cpu = json.loads(text_q.strip().splitlines()[-1])
+    q_card = json.loads(json.dumps(q_card))
+    r["quickstart"] = dict(card=q_card, cpu=q_cpu, s=secs_q,
+                           equal=q_card == q_cpu)
+    log(f"[phase22] (c) on {card}: launch.train {TRAIN_ARCH} full width "
+        f"{LAUNCH_TRAIN_STEPS} steps of 8 x 128: exit {rc}, "
+        f"{r['train']['faults']} faults, loss {r['train']['loss_first']!r} "
+        f"-> {r['train']['loss_last']!r}, {secs:.1f} s; launch.serve "
+        f"{LM_ARCH} --reduced: exit {rc_s}, {secs_s:.1f} s; --dry-run: serve"
+        f" {SERVE_DRY_ARCH} {SERVE_DRY_SHAPE} exit {rc_d} (dominant "
+        f"{sd['roofline']['dominant']}), train {TRAIN_DRY_ARCH} train_4k "
+        f"exit {rc_t} (dominant {td['roofline']['dominant']}); quickstart "
+        f"on the card {secs_q:.1f} s: {q_card} vs the CPU's {q_cpu}: equal "
+        f"{r['quickstart']['equal']}")
+    t = r["train"]
+    if not (rc == 0 and t["faults"] == 0 and t["steps"] == LAUNCH_TRAIN_STEPS
+            and math.isfinite(t["loss_last"])):
+        raise AssertionError(f"phase22 (c): launch.train {r['train']}")
+    if rc_s or rc_d or rc_t or rc_q:
+        raise AssertionError(f"phase22 (c): exit codes serve {rc_s}, serve "
+                             f"--dry-run {rc_d}, train --dry-run {rc_t}, "
+                             f"quickstart on the CPU {rc_q}: {text_t[-800:]}")
+    if not r["quickstart"]["equal"]:
+        raise AssertionError(f"phase22 (c): the quickstart's integers "
+                             f"differ: card {q_card}, CPU {q_cpu}")
+    return r
+
+
+def phase22(card, gen, r21):
+    """(a) the dry run against phase 21(a), (b) the stencil dry run on the
+    card, (c) the entry points.  The host-only work runs first, (a) here
+    beside (c)'s processes, and is over before (b).  The stencil launches
+    of (b)'s kernel runs and (c)'s quickstart are phase 22's main path:
+    the counts are zeroed before (b) and read after (c)."""
+    from repro_torch.kernels import stencil2d as S
+    t0 = time.perf_counter()
+    procs = start_dry_runs()
+    ra = phase22a(card, r21)
+    host_s = {"(a)": round(time.perf_counter() - t0, 1)}
+    done = finish_all(procs, t0)
+    host_s.update({name: round(d[2], 1) for name, d in done.items()})
+    log(f"[phase22] the host-only work, (a) here and the processes side by "
+        f"side, ended after (s): {host_s}")
+    zero_counts()                            # main path: 22(b), (c)
+    rb = phase22b(card, gen)
+    rc = phase22c(card, done)
+    launches = dict(S.launch_counts)
+    stop_dry_runs(procs)
+    secs = time.perf_counter() - t0
+    log(f"[phase22] stencil launches on the launch path ((b)'s kernel runs "
+        f"and (c)'s quickstart): {launches}; phase 22 took {secs:.1f} s")
+    if launches["stencil_sweep"] == 0:
+        raise AssertionError("phase 22 never launched stencil_sweep")
+    return dict(a=ra, b=rb, c=rc, launches=launches, host_s=host_s,
+                s=secs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5793,7 +6152,6 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port is not beside this script "
               f"({ROOT / 'src' / 'repro_torch'} missing)", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 gates: true f32
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import stencil2d as S
@@ -5903,6 +6261,7 @@ def main(argv=None) -> int:
         f"kernel route, its planted faults' included): {r21['launches']}")
     if r21["launches"]["wgmma"] == 0:
         raise AssertionError("phase 21 never launched the wgmma kernel")
+    r22 = phase22(card, gen, r21)
 
     def swa_entry(route, source, **extra):
         """The kernels-line entry of one swa_attention route: its times
@@ -5967,12 +6326,18 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/kernels/csrc/window.cuh",
         "entry": "src/repro_torch/kernels/csrc/stencil2d.cu",
         "replaces": "src/repro/kernels/stencil2d.py:138",
-        "launches": launches["stencil_sweep"],
+        "launches": launches["stencil_sweep"]
+        + r22["launches"]["stencil_sweep"],
+        "launches_by_path": {
+            "phases 2-4, 9, 10, 14-16": launches["stencil_sweep"],
+            "phase 22 (the stencil dry run's Jacobi, the quickstart)":
+                r22["launches"]["stencil_sweep"]},
         "max_abs_err": max([err2, err3, err4, rows10["cuda"]["err"],
                             rows14["err_plain"]["c"],
                             rows14["err_plain"]["e"], rows15["err"],
                             rows16["err"], rows5shard[1]["err"]]
-                           + [r["err"] for r in rows5s.values()]),
+                           + [r["err"] for r in rows5s.values()]
+                           + [r["err"] for r in r22["b"].values()]),
         "ms": helm5["ms"],
         "plain_ms": helm5["plain_ms"],
         "bound_ms": helm5["bound_ms"],
@@ -5993,9 +6358,12 @@ def main(argv=None) -> int:
         "shard_stack": {k: rows5shard[1][k] for k in (
             "ms", "device_us", "plain_ms", "bound_ms", "bound_by")},
         "mesh_farm": rows16["rows"],
-        "phases": {"launched": [2, 3, 4, 9, 10, 14, 15, 16],
+        "pod_dry_run": {f"{n}x{n}": {k: r[k] for k in (
+            "sweeps", "ms_sweep", "plain_ms_sweep", "t_m_ms", "over_t_m",
+            "err")} for n, r in r22["b"].items()},
+        "phases": {"launched": [2, 3, 4, 9, 10, 14, 15, 16, 22],
                    "held_against_plain": [1, 2, 3, 4, 5, 8, 10, 14, 15,
-                                          16]},
+                                          16, 22]},
     }, {
         "name": "multistep_sweep",
         "route": "cuda",

@@ -253,7 +253,11 @@ def moe_aux(logits, probs, top_i, pos_s, capacity: int) -> dict:
     """Switch-style load-balance loss, the router z-loss and the share of
     assignments past capacity, all float32."""
     T, E = probs.shape
-    counts = torch.bincount(top_i.reshape(-1), minlength=E).float()
+    flat = top_i.reshape(-1)
+    # scatter_add_ of ones: bincount's counts at a static (E,) shape, which
+    # the meta device traces (bincount has no meta kernel)
+    counts = torch.zeros(E, dtype=flat.dtype, device=flat.device) \
+        .scatter_add_(0, flat, torch.ones_like(flat)).float()
     ce = counts / (T * top_i.shape[1])
     return {"lb_loss": E * torch.sum(probs.mean(dim=0) * ce),
             "router_z": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),

@@ -220,9 +220,11 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, max_position: int = 0,
     ``max_position`` rows of ``pos_embed`` (0: 4096), as the reference's.
     The draws are torch's, not ``jax.random``'s: to compare with the
     reference, convert its weights
-    (:func:`repro_torch.interop.params_from_reference`)."""
+    (:func:`repro_torch.interop.params_from_reference`).  On
+    ``device="meta"`` nothing is drawn or allocated: the parameters have
+    their shapes and dtypes only (a dry run's model)."""
     dev = resolve_device(device)
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(seed)
     return Transformer(cfg, device=dev, generator=generator,
                        max_position=max_position)

@@ -18,11 +18,21 @@ one copy, on that axis's first device.
 A lane farm over a mesh (:class:`repro_torch.core.streaming.FarmEngine`
 with ``mesh=``) spreads its slots over one mesh axis: :func:`axis_devices`
 lists that axis's devices, :func:`local_slot` maps a slot to its lane shard
-and :func:`slice_partition` gives one lane shard's spatial partition.  The
-LM parts of the reference module (``param_spec``, ``zero1_spec`` and the
-rest: annotations for a model sharded over a mesh) have no counterpart:
-the port trains and serves a model on one card, and a host batch splits
-over a mesh's ``"data"`` axis by :func:`repro_torch.data.shard_batch`.
+and :func:`slice_partition` gives one lane shard's spatial partition.
+
+The LM half is the reference's parallelism policy, rule for rule: which
+mesh axes split each parameter, optimizer, batch and cache leaf of a model
+(:func:`param_spec`, :func:`zero1_spec`, :func:`params_shardings`,
+:func:`opt_shardings`, :func:`batch_spec`, :func:`cache_shardings`).  A
+spec is a tuple with one entry a dimension: ``None``, an axis name, or a
+tuple of names (the twin of ``PartitionSpec``).  The rules read only the
+mesh's axis names and sizes, so they take an :class:`AbstractMesh`
+(:func:`make_abstract_mesh`: sizes, no devices) as well as a
+:class:`Mesh`.  The launch layer (:mod:`repro_torch.launch`) prices a
+deployment from them; no code of the port places a model's shards.  The
+reference stacks each unit layer's leaves on a leading rep axis; the
+port's leaves are per layer, so a spec here is the reference's with that
+axis dropped.
 """
 from __future__ import annotations
 
@@ -261,3 +271,218 @@ def gather_grid(blocks: Sequence[torch.Tensor], part: GridPartition,
     for i, blk in enumerate(blocks):
         out[_block_index(part, i, shape, batch)].copy_(blk)
     return out
+
+
+# ---------------------------------------------------------------------------
+# LM parallelism policy (the reference's param/optimizer/batch/cache specs)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh of named axis sizes and no devices, for the spec rules and
+    dry runs (twin of ``jax.sharding.AbstractMesh``)."""
+    sizes: tuple
+    axis_names: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+
+def make_abstract_mesh(axis_shapes: Sequence[int],
+                       axis_names: Sequence[str]) -> AbstractMesh:
+    shape, names = tuple(int(s) for s in axis_shapes), tuple(axis_names)
+    if len(shape) != len(names) or len(set(names)) != len(names):
+        raise ValueError(f"axis sizes {shape} and names {names} do not "
+                         "pair up")
+    return AbstractMesh(shape, names)
+
+
+def _div(n: int, k: int) -> bool:
+    return k > 0 and n % k == 0
+
+
+def _entry(axes):
+    """A spec entry for mesh ``axes``: None, one name, or a tuple of
+    names (``PartitionSpec`` normalises a 1-tuple to its name too)."""
+    axes = tuple(axes)
+    return None if not axes else axes[0] if len(axes) == 1 else axes
+
+
+def dp_axes(mesh) -> tuple:
+    """The data-parallel axes: ('pod','data') multi-pod, ('data',) single."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def mesh_size(mesh, axis: str) -> int:
+    return mesh.shape[axis] if axis in mesh.axis_names else 1
+
+
+def param_spec(cfg, path: str, shape, mesh) -> tuple:
+    """The spec of one parameter leaf, identified by its name (the port's
+    dotted name, or the reference's tree path).  A path holding ``unit``
+    is a reference leaf stacked on a leading rep axis, which the rules
+    skip; the port's leaves are never stacked.
+
+    Vocab-sharded embeddings; Megatron GQA: the head dims shard on
+    "model" when divisible, K/V replicate when KH < tp, and when even H <
+    tp every projection shards head_dim; context-parallel configs
+    replicate attention weights; experts on "model"; column-parallel up /
+    gate, row-parallel down; SSM in/out projections; norms, biases, conv,
+    ``A_log``, ``dt_bias`` and ``pos_embed`` replicated."""
+    tp = mesh_size(mesh, "model")
+    off = 1 if ("unit" in path and "cache" not in path) else 0
+    dims = list(shape)
+    spec = [None] * len(dims)
+
+    def set_if(idx, cond=True):
+        if cond and _div(dims[idx], tp):
+            spec[idx] = "model"
+            return True
+        return False
+
+    if "embed" in path and "pos" not in path and "patch" not in path:
+        set_if(int(np.argmax(dims)))     # (V, D) / (D, V): the vocab dim
+    elif any(k in path for k in ("wq", "wk", "wv", "wo")):
+        h_dim = off + (0 if "wo" in path else 1)   # H / KH
+        d_dim = off + (1 if "wo" in path else 2)   # head_dim
+        is_kv = ("wk" in path) or ("wv" in path)
+        if cfg.attn_sequence_parallel:
+            pass              # the sequence shards on "model" instead
+        elif _div(dims[h_dim], tp):
+            spec[h_dim] = "model"
+        elif not is_kv:
+            set_if(d_dim)     # K/V heads replicate; the rest shard hd
+    elif any(k in path for k in ("w_up", "w_gate", "w_down")):
+        set_if(off + 0)                  # expert-parallel: experts axis
+    elif "router" in path:
+        pass
+    elif "up" in path or "gate" in path:
+        set_if(off + 1)                  # (D, F): column parallel
+    elif "down" in path:
+        set_if(off + 0)                  # (F, D): row parallel
+    elif "in_proj" in path:
+        set_if(off + 1) or set_if(off + 0)
+    elif "out_proj" in path:
+        set_if(off + 0) or set_if(off + 1)
+    elif "vision_proj" in path:
+        set_if(off + 1)
+    return tuple(spec)
+
+
+def zero1_spec(spec, shape, mesh) -> tuple:
+    """ZeRO-1: ``spec`` with the largest still-unsharded dim that the
+    "data" axis divides sharded on "data" (ties: the later dim)."""
+    dz = mesh_size(mesh, "data")
+    if dz == 1:
+        return tuple(spec)
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    cands = [(shape[i], i) for i, s in enumerate(entries)
+             if s is None and _div(shape[i], dz) and shape[i] >= dz]
+    if cands:
+        entries[max(cands)[1]] = "data"
+    return tuple(entries)
+
+
+def _named_shapes(params) -> dict:
+    """Shapes by name: a module's ``named_parameters()`` or a dict of
+    tensors (or shapes)."""
+    if isinstance(params, torch.nn.Module):
+        params = dict(params.named_parameters())
+    return {k: tuple(getattr(v, "shape", v)) for k, v in params.items()}
+
+
+def params_shardings(cfg, params, mesh) -> dict:
+    """Each parameter's spec, by name."""
+    return {k: param_spec(cfg, k, s, mesh)
+            for k, s in _named_shapes(params).items()}
+
+
+def opt_shardings(cfg, opt_state, mesh) -> dict:
+    """An :class:`~repro_torch.optim.AdamState`'s specs: ``step``
+    replicated; ``master``, ``m`` and ``v`` the parameter's spec with
+    ZeRO-1 over "data"."""
+    out = {"step": ()}
+    for field in ("master", "m", "v"):
+        out[field] = {
+            k: zero1_spec(param_spec(cfg, k, s, mesh), s, mesh)
+            for k, s in _named_shapes(getattr(opt_state, field)).items()}
+    return out
+
+
+def batch_spec(mesh, batch_size: int, ndim: int = 2) -> tuple:
+    """Shard the batch dim over every data-parallel axis that divides it."""
+    use, rem = [], batch_size
+    for a in dp_axes(mesh):
+        n = mesh_size(mesh, a)
+        if rem % n == 0 and rem >= n:
+            use.append(a)
+            rem //= n
+    return (_entry(use),) + (None,) * (ndim - 1)
+
+
+def cache_shardings(cfg, caches, mesh, batch_size: int,
+                    seq_shard: bool = True, n_prefix: int = None) -> list:
+    """Specs of decode caches (the per-layer list of :func:`~repro_torch.
+    models.transformer.init_cache`, or of ``prefill_cross_caches`` with
+    ``seq_shard=False``; a ``None`` layer stays ``None``).
+
+    KV caches (B, S, KH, hd): batch over the dp axes that divide it, the
+    sequence over "model" (flash-decode style); with B == 1 the dp axes
+    join the sequence instead.  int8 scales (B, S, KH) shard the same
+    way; ring ``pos`` arrays and SSM caches the batch only.
+
+    The reference applies its rule to stacked (reps, B, S, ...) unit
+    caches; on its unstacked prefix caches (deepseek-moe-16b's first
+    layer) the same dim numbers land one dim early (the batch axes on the
+    sequence).  The port keeps that leaf for leaf: the first ``n_prefix``
+    layers (default: the stack's prefix) take the rule unstacked."""
+    from ..models.transformer import stack_pattern
+    if n_prefix is None:
+        n_prefix = len(stack_pattern(cfg)[0])
+    bs, rem = [], batch_size
+    for a in dp_axes(mesh):
+        if _div(batch_size, mesh_size(mesh, a)) \
+                and rem % mesh_size(mesh, a) == 0:
+            bs.append(a)
+            rem //= mesh_size(mesh, a)
+    seq_axes = ["model"] if seq_shard else []
+    if batch_size == 1:
+        seq_axes = list(dp_axes(mesh)) + seq_axes if seq_shard else []
+        bs = []
+
+    def rule(key, shape):                # the reference's, on stacked dims
+        spec = [None] * len(shape)
+        if len(shape) >= 2:
+            spec[1] = _entry(bs)
+        if key == "conv" or key.endswith("h"):
+            return spec
+        seq_ok = (seq_axes and len(shape) >= 3 and all(
+            _div(shape[2], mesh_size(mesh, a)) for a in seq_axes))
+        if seq_ok and (len(shape) == 5
+                       or (len(shape) == 4 and "scale" in key)):
+            spec[2] = _entry(seq_axes)
+        return spec
+
+    def layer(i, cache):
+        if cache is None:
+            return None
+        if i < n_prefix:
+            return {k: tuple(rule(k, tuple(v.shape)))
+                    for k, v in cache.items()}
+        return {k: tuple(rule(k, (1,) + tuple(v.shape))[1:])
+                for k, v in cache.items()}
+    return [layer(i, c) for i, c in enumerate(caches)]
+
+
+def replicated(mesh) -> tuple:
+    return ()
+
+
+def spec_shards(spec, mesh) -> int:
+    """How many pieces a leaf of ``spec`` is split into on ``mesh``."""
+    n = 1
+    for entry in spec:
+        for ax in ((entry,) if isinstance(entry, str) else (entry or ())):
+            n *= mesh.shape[ax]
+    return n

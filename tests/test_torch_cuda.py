@@ -244,6 +244,24 @@ def test_cuda_sharded_across_two_cards(cuda, T):
     sharded_against_single(["cuda:0", "cuda:1"], (128, 256), "reflect", T)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,sweeps", [(1024, 200), (4096, 50)])
+def test_cuda_stencil_dryrun_jacobi_matches_plain(cuda, n, sweeps):
+    """``chip_smoke.py`` phase 22(b) at one pod device's 1024² block (200
+    sweeps) and at a whole grid (4096² here, 16384² there; 50 sweeps):
+    the dry run's Jacobi on "cuda", one launch a sweep, against the plain
+    path on the card — equal iterations, grids within 1e-5."""
+    from repro_torch.launch import stencil_dryrun as SD
+    u0 = torch.as_tensor(field(40, (n, n)), device=cuda)
+    before = TK.launch_counts["stencil_sweep"]
+    got = SD.jacobi_loop(sweeps, backend="cuda", device=cuda).run(u0)
+    assert TK.launch_counts["stencil_sweep"] - before == sweeps
+    want = SD.jacobi_loop(sweeps, backend="torch", device=cuda).run(u0)
+    assert int(got.iters) == int(want.iters) == sweeps
+    assert float((got.a - want.a).abs().max()) <= 1e-5
+    assert abs(float(got.reduced) - float(want.reduced)) <= 1e-5
+
+
 # ---------------------------------------------------------------------------
 # the streaming FarmEngine: chained = classic = solo runs, bit for bit; the
 # slot buffers stay where they were allocated; one launch a body step

@@ -41,7 +41,10 @@ def test_scan_covers_the_port():
             "recovery.py", "faults.py", "video_restoration.py",
             "specs.py", "halo.py", "moe_parallel.py", "ssm.py",
             "pipeline.py", "adam.py", "schedule.py", "trainer.py",
-            "checkpoint.py", "compression.py", "train_lm.py"} <= names
+            "checkpoint.py", "compression.py", "train_lm.py", "mesh.py",
+            "cells.py", "cost_analysis.py", "dryrun.py", "roofline.py",
+            "stencil_dryrun.py", "train.py", "serve.py",
+            "quickstart.py"} <= names
 
 
 @pytest.fixture
@@ -129,6 +132,30 @@ def test_training_entry_points_raise_without_a_card(cpu_only_host, tmp_path):
     grads, loss, _ = grad_accum_step(cfg, model, batch, device="cpu")
     assert loss.device.type == "cpu" and len(grads) == len(
         list(model.parameters()))
+
+
+def test_launch_entry_points_raise_without_a_card(cpu_only_host,
+                                                 tmp_path, monkeypatch):
+    """The launch CLIs and the host mesh default to the card; the dry
+    runs on the production meshes need none but are refused the same
+    way, as every entry point is, unless asked for the CPU."""
+    from repro_torch.examples import quickstart
+    from repro_torch.launch import dryrun, serve, train
+    from repro_torch.launch.mesh import make_host_mesh
+    monkeypatch.chdir(tmp_path)
+    for main, argv in (
+            (train.main, ["--arch", "qwen3-1.7b", "--reduced"]),
+            (train.main, ["--arch", "qwen3-1.7b", "--dry-run"]),
+            (serve.main, ["--arch", "gemma2-9b", "--reduced"]),
+            (serve.main, ["--arch", "gemma2-9b", "--dry-run"]),
+            (dryrun.main, ["--arch", "qwen3-1.7b", "--shape", "decode_32k"]),
+            (quickstart.main, [])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_host_mesh()
+    assert make_host_mesh(device="cpu").shape == {"data": 1, "model": 1}
+    assert not (tmp_path / "runs").exists()
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "jamba-v0.1-52b"])
