@@ -4,7 +4,7 @@
 Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
 (the stencil+reduce kernel of ``window.cuh`` behind its two entry points,
 the single-step sweep and the temporal-blocking multistep sweep, and the
-sliding-window flash attention: bf16 at hd 64/128/256 on the tensor
+sliding-window flash attention: bf16 at hd 64/96/128/256 on the tensor
 cores, the rest on CUDA cores), holds each against its plain
 PyTorch version, and drives the port's main paths — the persistent-frame
 Loop-of-stencil-reduce on "cuda" and "cuda-multistep", the lane farm
@@ -94,8 +94,8 @@ phi-3-vision-4.2b) — on one CUDA card at full size:
      device time (the event timing there reads the host's issue rate);
      both stencil kernels also on one spatial shard's lane stack of phase
      16's composed farm (4 x 270x1920, restore, T = 1 and 4);
- 11. swa_attention vs plain on both routes (bf16 at hd 64/128/256 on the
-     wgmma kernel, the rest on the CUDA-core one): the reference test's
+ 11. swa_attention vs plain on both routes (bf16 at hd 64/96/128/256 on
+     the wgmma kernel, the rest on the CUDA-core one): the reference test's
      shapes (GQA, softcap, every head_dim) in f32 within 2e-5 (the share
      of the limit used printed) and their bf16 twins within one bf16 ulp,
      each call counted on its route;
@@ -118,8 +118,8 @@ phi-3-vision-4.2b) — on one CUDA card at full size:
      decoder, 8 x 8/8 heads at hd 64, S 384, bf16 and f32; phi-3-vision,
      4 x 32/32 at hd 96, S 1024, bf16 and f32; deepseek f32, 16/16 at hd
      128, S 4096), each held against plain and timed beside plain,
-     flex_attention and the bound (bf16 on the CUDA cores also at the
-     tensor cores' rate);
+     flex_attention, the bound and (bf16) the split design's bound
+     (1.83x the function's flops at hd 96, whose P·V is padded to 128);
  12. gemma2-9b at full width and depth in bf16, B=1, S=8192: the scoring
      forward on the kernel route (42 launches a forward) and on the einsum
      route, lm_loss, max|dlogits| and top-1 agreement gated; then in f32
@@ -169,8 +169,9 @@ phi-3-vision-4.2b) — on one CUDA card at full size:
      bit-equal on both, phase 12's bf16 loss and logits limits, the top-1
      clause against a float32 forward of the same weights
      (MAX_TOP1_EXCESS_BF16) and against the einsum route
-     (MIN_TOP1_ROUTES_BF16), the layer gates (each decoder layer's update
-     gap, the kernel on one route only), which a planted fault (every
+     (MIN_TOP1_ROUTES_BF16), each route's lm_loss gap to that float32
+     forward's (printed, not gated), the layer gates (each decoder layer's
+     update gap, the kernel on one route only), which a planted fault (every
      decoder layer reads the cross cache of the layer before it) must
      fail; the profiler's device ms by part (the encoder alone, then the
      decoder's self-attention, cross-attention and MLP, and the head); (b) the same in f32 (the CUDA-core
@@ -181,8 +182,8 @@ phi-3-vision-4.2b) — on one CUDA card at full size:
      caches' batch rows rolled -- must fail), decode ms a step beside
      its bytes bound, the idle share; (d) phi-3-vision-4.2b bf16 at full
      width and depth (32 layers, d 3072, CLIP stubbed), B=4 x (576
-     patches + 448 tokens): both routes (32 CUDA-core launches a forward
-     at hd 96) under (a)'s gates, which a planted fault (the patches
+     patches + 448 tokens): both routes (32 wgmma launches a forward at
+     hd 96) under (a)'s gates, which a planted fault (the patches
      after the text) must fail; lm_loss over the text positions only
      (B x 448 labels); (e) the same in f32 at depth 2 under the f32
      gates; greedy serving B=2 x (576 + 448) + 32 in bf16 and (exact) in
@@ -276,8 +277,8 @@ launches also by shape, the multistep launches by T).  Phases 12-13, 20
 and 17-19 are the LM main path: the counts (the attention's by route) are
 zeroed just before phase 12 and read just after phase 19 (phase 20's
 cached attention takes no kernel, as in the reference); the bf16 layers
-at hd 64/128/256 must take the wgmma route and the f32 ones and bf16 at hd
-96 the CUDA-core route, and each route is its own entry of the
+at hd 64/96/128/256 must take the wgmma route and the f32 ones the
+CUDA-core route, and each route is its own entry of the
 ``kernels`` line.  Phase 21 is the training path: the counts are zeroed
 just before it and read after its evaluations (d), before the kernel is
 timed at qwen3's shape; the wgmma route must have launched (gemma2's
@@ -2547,21 +2548,24 @@ def band_pairs(S: int, window: int) -> int:
     return window * (window + 1) // 2 + (S - window) * window
 
 
-def swa_bounds(S, window, H, KH, hd, elem, B=1, rate=3.35e12, peak=None):
+def swa_bounds(S, window, H, KH, hd, elem, B=1, rate=3.35e12):
     """(bound_ms, bound_by, split_ms): bytes of q, k, v read once and o
     written once, against 4·hd flops per visible (q, k) pair and head (two
-    products, multiply and add) at ``peak`` (default the type's peak rate:
-    bf16 tensor cores, f32 CUDA cores); and for bf16 the split design's
-    bound, whose P·V runs twice (P_hi and P_lo): 6·hd flops a pair (None
-    for f32)."""
+    products, multiply and add) at the type's peak rate (bf16 tensor
+    cores, f32 CUDA cores); and for bf16 the wgmma design's
+    bound, whose P·V runs twice (P_hi and P_lo) over the head dim padded
+    to whole 64-column panels (hd 96: 128): 2·hd + 4·padded flops a pair,
+    6·hd at 64/128/256 (None for f32)."""
     nbytes = B * (2 * H + 2 * KH) * S * hd * elem
-    flops = 4 * hd * band_pairs(S, window) * H * B
-    peak = peak or (BF16_RATE if elem == 2 else FP32_RATE)
+    pairs = band_pairs(S, window) * H * B
+    flops = 4 * hd * pairs
+    peak = BF16_RATE if elem == 2 else FP32_RATE
     t_bytes, t_ops = nbytes / rate, flops / peak
+    padded = -(-hd // 64) * 64
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations",
-            max(t_bytes, 1.5 * flops / BF16_RATE) * 1e3 if elem == 2
-            else None)
+            max(t_bytes, (2 * hd + 4 * padded) * pairs / BF16_RATE) * 1e3
+            if elem == 2 else None)
 
 
 def library_attention(q, k, v, window, cap):
@@ -2929,10 +2933,10 @@ def swa_slice_shapes(gen, rate):
     """Both SWA kernels at the shapes phases 19 and 17(b) give them: held
     against the plain version (bf16 within one bf16 ulp, f32 within 2e-5),
     then timed beside the plain version, a library call's (flex_attention)
-    and the function's bound at the type's peak rate; a bf16 shape on the
-    CUDA cores also gets ``route_bound_ms``, its bound at the CUDA cores'
-    rate that this route runs on until it uses the tensor cores.
-    Returns {name: {dtype: row}}."""
+    and the function's bound at the type's peak rate; a bf16 shape also
+    gets ``split_bound_ms``, the wgmma design's own bound (P·V twice, over
+    the head dim padded to whole panels: hd 96 as 128).  Returns {name:
+    {dtype: row}}."""
     import torch
     from repro_torch.kernels import swa_attention as A
     lims = {torch.bfloat16: (TOL_SWA_BF16_RTOL, TOL_SWA_BF16_ATOL),
@@ -2970,28 +2974,23 @@ def swa_slice_shapes(gen, rate):
             lib_ms = cuda_ms(fn, iters=10, warmup=2) if fn else None
             del fn
             torch.cuda.empty_cache()
-            bound_ms, bound_by, _ = swa_bounds(S, 0, H, KH, hd, elem, B=B,
-                                               rate=rate)
-            route_ms = None
-            if elem == 2 and route == "cuda_core":
-                route_ms = swa_bounds(S, 0, H, KH, hd, elem, B=B, rate=rate,
-                                      peak=FP32_RATE)[0]
+            bound_ms, bound_by, split_ms = swa_bounds(S, 0, H, KH, hd, elem,
+                                                      B=B, rate=rate)
             tflops = 4 * hd * band_pairs(S, 0) * H * B / (ms * 1e-3) / 1e12
             out.setdefault(name, {})[dt_name] = dict(
                 batch=B, heads=H, kv_heads=KH, head_dim=hd, seq=S,
                 route=route, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, route_bound_ms=route_ms,
-                tflops=tflops, library_ms=lib_ms, library=lib_label,
-                err=e, limit_use=use, launch=info)
+                bound_by=bound_by, split_bound_ms=split_ms, tflops=tflops, library_ms=lib_ms,
+                library=lib_label, err=e, limit_use=use, launch=info)
             peak = BF16_RATE if elem == 2 else FP32_RATE
             log(f"[phase11] swa_attention {name} (B {B}, H {H}, KH {KH}, hd"
                 f" {hd}, S {S}, causal global, {dt_name}, {route} route): "
                 f"kernel {ms:.4f} ms ({tflops:.2f} TFLOP/s), plain "
                 f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by} at "
                 f"the type's {peak / 1e12:.0f} TFLOP/s)"
-                + ("" if route_ms is None else
-                   f", at the CUDA cores' {FP32_RATE / 1e12:.0f} TFLOP/s "
-                   f"this route runs on {route_ms:.4f} ms")
+                + ("" if split_ms is None else
+                   f", the wgmma design's (P split, hd padded to "
+                   f"{-(-hd // 64) * 64}) {split_ms:.4f} ms")
                 + f", {lib_label} "
                 f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'} ms; "
                 f"max_abs_err vs plain {e!r}, {use:.4f} of the limit"
@@ -4661,13 +4660,14 @@ def bf16_gates(g) -> bool:
             and g["top1"] >= MIN_TOP1_ROUTES_BF16)
 
 
-def f32_twin_logits(cfg, model, batch):
-    """The logits of a float32 forward (einsum route, TF32 off) of the
-    same weights widened to float32: the yardstick of the bf16 routes'
-    top-1 agreement."""
+def f32_twin(cfg, model, batch):
+    """The logits and ``lm_loss`` of a float32 forward (einsum route, TF32
+    off) of the same weights widened to float32 on the same batch: the
+    yardstick of the bf16 routes' top-1 agreement and of their loss."""
     import dataclasses
     import torch
     from repro_torch.models import transformer as T
+    from repro_torch.train.objective import lm_loss
     c32 = dataclasses.replace(cfg, dtype="float32")
     rows = model.pos_embed.shape[0] if hasattr(model, "pos_embed") else 0
     twin = T.Transformer(c32, device=DEVICE, max_position=rows)
@@ -4676,9 +4676,10 @@ def f32_twin_logits(cfg, model, batch):
     b32 = {k: v.float() if k == "frames" else v for k, v in batch.items()}
     with torch.no_grad(), einsum_route():
         logits, _ = T.forward(c32, twin, b32)
+        loss = float(lm_loss(c32, twin, b32)[0])
     del twin
     torch.cuda.empty_cache()
-    return logits
+    return logits, loss
 
 
 def context_route_compare(cfg, model, batch, planted):
@@ -4705,7 +4706,11 @@ def context_route_compare(cfg, model, batch, planted):
     gap = route_gap(logits_k, loss_k, logits_e, loss_e)
     truth = None
     if cfg.dtype == "bfloat16":
-        truth = f32_twin_logits(cfg, model, batch)
+        truth, loss_32 = f32_twin(cfg, model, batch)
+        gap["loss_f32"] = loss_32
+        gap["loss_rel_f32"] = {
+            route: abs(loss - loss_32) / abs(loss_32)
+            for route, loss in (("kernel", loss_k), ("einsum", loss_e))}
         gap["top1_f32"] = top1_share(logits_k, truth)
         gap["top1_einsum_f32"] = top1_share(logits_e, truth)
         gap["top1_excess"] = gap["top1_einsum_f32"] - gap["top1_f32"]
@@ -4782,6 +4787,13 @@ def report_context_forward(label, cfg, r, S, B, route, gates):
         f"{r['finite']}"
         + ("" if r["enc_equal"] is None else
            f"; encoder output bit-equal across routes {r['enc_equal']}"))
+    if "loss_f32" in r:
+        rel = r["loss_rel_f32"]
+        log(f"[phase19] {label}: lm_loss of the float32 forward of the same "
+            f"weights {r['loss_f32']!r}; each bf16 route's relative gap to "
+            f"it: kernel ({route}) {rel['kernel']:.4g}, einsum "
+            f"{rel['einsum']:.4g}; the route nearer the float32 loss: "
+            f"{min(rel, key=rel.get)}")
     log(f"[phase19] {label}: routes: {context_gate_line(r)}; layer by layer "
         f"(teacher-forced on the kernel route): "
         f"{context_layer_line(r['layer'])}")
@@ -5068,7 +5080,8 @@ def phase19(gen, rate):
         r = context_route_compare(c, model, batch,
                                   planted_patches_after_text)
         r["tokens"] = VLM_B * S
-        report_context_forward(label, c, r, S, VLM_B, "cuda_core",
+        report_context_forward(label, c, r, S, VLM_B,
+                               "wgmma" if bf16 else "cuda_core",
                                bf16_gates if bf16 else f32_gates)
         gates = bf16_gates if bf16 else f32_gates
         if gates(r["fault"]):
@@ -5114,7 +5127,8 @@ def slice_readings(r19) -> dict:
         keep = ("s_kernel", "s_einsum", "loss_rel", "max_dlogits", "top1",
                 "launches_kernel", "by_route", "enc_equal")
         out = {k: r[k] for k in keep + ("top1_f32", "top1_einsum_f32",
-                                        "top1_excess", "margin") if k in r}
+                                        "top1_excess", "margin", "loss_f32",
+                                        "loss_rel_f32") if k in r}
         out["tokens_per_s"] = r["tokens"] / r["s_kernel"]
         out["layer"] = {k: r["layer"][k] for k in ("rel", "embed")}
         out["fault"] = {k: r["fault"][k] for k in (
@@ -6245,8 +6259,8 @@ def main(argv=None) -> int:
                + r18["b"]["fault"]["launches"]
                + sum(r["fault"]["launches"] for r in r19.values()))
     log(f"[main] swa_attention launches on the LM path (phases 12-13, 20, "
-        f"17-19) by route: {lm_launches} (bf16: wgmma at hd 64/128/256, "
-        f"f32 and bf16 at hd 96: cuda_core), "
+        f"17-19) by route: {lm_launches} (bf16: wgmma at hd "
+        f"64/96/128/256, f32: cuda_core), "
         f"by phase {by_phase_lm}; {planted} of them by the planted-fault "
         "forwards")
     for route, count in lm_launches.items():
@@ -6289,7 +6303,7 @@ def main(argv=None) -> int:
                                [21] if route == "wgmma" else [])}}
     swa_wgmma = swa_entry(
         "wgmma", "src/repro_torch/kernels/csrc/swa_wgmma.cu",
-        takes="bfloat16 at hd 64/128/256",
+        takes="bfloat16 at hd 64/96/128/256",
         split_bound_ms=sum(r["split_bound_ms"]
                            for r in rows11["wgmma"].values()) / 2,
         lm={"forward_s": r12["s_kernel"], "einsum_forward_s":
@@ -6305,7 +6319,7 @@ def main(argv=None) -> int:
         slice_families=slice_readings(r19), train=train_readings(r21))
     swa_core = swa_entry(
         "cuda_core", "src/repro_torch/kernels/csrc/swa_attention.cu",
-        takes="float32 at every hd, bfloat16 at hd 16/32/96",
+        takes="float32 at every hd, bfloat16 at hd 16/32",
         launch=rows11["cuda_core"]["local"]["launch"], by_hd=by_hd11,
         lm={"max_dlogits_f32": r12f["max_dlogits"],
             "loss_rel_f32": r12f["loss_rel"], "fault_f32": r12f["fault"],

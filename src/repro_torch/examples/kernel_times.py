@@ -7,6 +7,9 @@ checkout of the port: run it once per tree in one process each, in turns
   CUDA-core kernel and bfloat16 on the wgmma kernel, each held against
   the plain version on one kv head's group first (float32 within 2e-5,
   bf16 within one bf16 ulp); TFLOP/s of the band's 4·hd flops a pair;
+* ``swa_attention`` at phi-3-vision-4.2b's shape (B 4, 32/32 heads, hd 96,
+  S 1024, causal, global, bf16) on whichever route the tree takes there
+  (named in its row), held against the plain version within one bf16 ulp;
 * ``stencil_sweep`` on a Helmholtz 8192² frame and ``multistep_sweep`` at
   T = 2, 4 and 8 (``chip_smoke.py`` phase 5's shapes).
 
@@ -29,6 +32,7 @@ SEQ, H, KH, HD, CAP, WINDOW = 8192, 16, 8, 256, 50.0, 4096
 F32_TOL = 2e-5
 BF16_RTOL, BF16_ATOL = 1e-2, 1e-4     # one bf16 ulp, as chip_smoke.py
 SIZE = 8192
+VLM_B, VLM_H, VLM_HD, VLM_SEQ = 4, 32, 96, 1024   # phi-3-vision-4.2b
 
 
 def band_pairs(S: int, window: int) -> int:
@@ -94,6 +98,41 @@ def swa_times(gen, iters):
     return rows
 
 
+def vlm_swa_times(gen, iters):
+    """The bf16 attention at phi-3-vision's shape: the route the tree's
+    wrapper took (from its launch counts), the time a launch, TFLOP/s."""
+    import torch
+    from repro_torch.kernels import swa_attention as A
+    q, k, v = (torch.randn((VLM_B * VLM_H, VLM_SEQ, VLM_HD), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    kw = dict(window=0, causal=True)
+    before = dict(A.launch_counts)
+    got = A.swa_attention(q, k, v, **kw).float()
+    route = next(r for r in before if A.launch_counts[r] != before[r])
+    want = A.swa_attention_plain(q, k, v, **kw).float()
+    err = float((got - want).abs().max())
+    use = float(((got - want).abs()
+                 / (BF16_ATOL + BF16_RTOL * want.abs())).max())
+    del got, want
+    torch.cuda.empty_cache()
+    if not use <= 1.0:
+        raise AssertionError(f"swa_attention bf16 phi-3-vision: kernel/plain"
+                             f" limit use {use!r}")
+    ms = device_ms(lambda: A.swa_attention(q, k, v, **kw), iters)
+    tflops = (4 * VLM_HD * band_pairs(VLM_SEQ, 0) * VLM_B * VLM_H
+              / (ms * 1e-3) / 1e12)
+    row = dict(route=route, ms=ms, max_abs_err=err, limit_use=use,
+               tflops=tflops)
+    print(f"swa_attention bf16 phi-3-vision (B {VLM_B}, {VLM_H}/{VLM_H} "
+          f"heads, hd {VLM_HD}, S {VLM_SEQ}, causal) on {row['route']}: "
+          f"{ms:.4f} ms ({tflops:.2f} TFLOP/s), max_abs_err vs plain "
+          f"{err:.3g} ({use:.4f} of the limit)", flush=True)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
 def stencil_times(gen, iters):
     import torch
     from repro_torch.core.frames import frame_env, frame_spec, make_frame
@@ -157,6 +196,8 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     result = {"label": args.label or args.src, "card": card}
     result["swa_attention"] = swa_times(gen, iters=10)
+    result["swa_attention"]["bf16 phi-3-vision"] = vlm_swa_times(gen,
+                                                                 iters=20)
     result["stencil"] = stencil_times(gen, iters=20)
     print(json.dumps(result), flush=True)
     return 0

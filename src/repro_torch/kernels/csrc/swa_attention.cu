@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/swa_attention.py::_swa_kernel
 // (pallas_call at :97) for float32 at every head_dim and bfloat16 at head_dim
-// 16, 32 and 96 (bf16 at 64, 128 and 256 runs on the tensor cores:
+// 16 and 32 (bf16 at 64, 96, 128 and 256 runs on the tensor cores:
 // swa_wgmma.cu): softmax(softcap(q k^T * scale) + band mask) v with the
 // running max m, sum l and output accumulator in float32 (online softmax over
 // kv tiles), kv head = query head / G (GQA).
@@ -584,8 +584,7 @@ int bf16_by_head_dim(int hd, const Args& a) {
   switch (hd) {
     case 16: return launch<__nv_bfloat16, 16>(a);
     case 32: return launch<__nv_bfloat16, 32>(a);
-    case 96: return launch<__nv_bfloat16, 96>(a);
-    default: return fold::kErrBadArgs;  // 64, 128, 256: swa_attention_wgmma
+    default: return fold::kErrBadArgs;  // 64, 96, 128, 256: swa_attention_wgmma
   }
 }
 
@@ -595,7 +594,7 @@ extern "C" {
 
 // Flash attention over bh = B*H query rows of (S, hd) and bkh = B*KH kv rows
 // (query row b reads kv row b / (bh / bkh)), float32 (dtype 0) or bfloat16
-// (dtype 1, head_dim 16, 32 and 96 only), all contiguous; o has q's shape and
+// (dtype 1, head_dim 16 and 32 only), all contiguous; o has q's shape and
 // type.  window 0 means no band, causal 0 no causal mask, softcap 0 no
 // capping.
 int swa_attention_fwd(int dtype, int hd, const void* q, const void* k, const void* v, void* o,

@@ -1,11 +1,12 @@
 // Flash sliding-window attention on Hopper's tensor cores (bf16), for sm_90a.
 //
 // Replaces the Pallas TPU kernel repro/kernels/swa_attention.py::_swa_kernel
-// on the bfloat16 route at head_dim 64, 128 and 256 (swa_attention.cu keeps
-// float32 and the test-size head dims): softmax(softcap(q k^T * scale) + band
-// mask) v for one (128-row q block, query head) per CTA, with the running
-// max m, sum l and the output accumulator in float32, kv head = query head /
-// G (GQA), masked scores at -2^30 as in the reference.
+// on the bfloat16 route at head_dim 64, 96, 128 and 256 (swa_attention.cu
+// keeps float32, and bfloat16 at the test-size head dims 16 and 32):
+// softmax(softcap(q k^T * scale) + band mask) v for one (128-row q block,
+// query head) per CTA, with the running max m, sum l and the output
+// accumulator in float32, kv head = query head / G (GQA), masked scores at
+// -2^30 as in the reference.
 //
 // What bounds it on an H100: operations.  At gemma2-9b's shape (S 8192, hd
 // 256, 16 heads) a global layer is 550 GFLOP of q.k and p.v against ~0.2 GB
@@ -40,7 +41,15 @@
 //     tensor cores take the other warpgroup's phase: the two take turns
 //     (ping-pong, two named barriers), so one's softmax can hide behind the
 //     other's products;
-//   * the output is O / max(l, 1e-30) rounded once to bf16.
+//   * the output is O / max(l, 1e-30) rounded once to bf16;
+//   * head_dim 96 runs in the hd-128 layout, padded in shared memory and
+//     not in HBM: the tensor maps carry the true width (96 columns, rows
+//     of 192 bytes), so TMA zero-fills columns 96-127 of the second panel
+//     (the barrier still counts the whole box, as for rows past S); S
+//     takes the 6 k-steps of the real columns, P V runs at N = 128 over
+//     the zero columns (4/3 of a native hd 96's P V work, on the hd-128
+//     path's descriptors, ping-pong and overlap), and the store writes
+//     the first 96 columns.
 // The tensor maps are encoded on the host per launch by
 // cuTensorMapEncodeTiled, looked up with cudaGetDriverEntryPointByVersion
 // (no libcuda link).  A producer warp with setmaxnreg is later work.
@@ -286,13 +295,14 @@ __device__ __forceinline__ void turn_pass(int wg) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
 }
 
-// S_j = Q K_j^T for this warpgroup's 64 rows: hd/16 k-steps over the
-// 64-column panels of q (kBQ rows) and k (kBK rows).
-template <int HD>
+// S_j = Q K_j^T for this warpgroup's 64 rows: GHD/16 k-steps over the
+// 64-column panels of q (kBQ rows) and k (kBK rows); columns past GHD are
+// the layout's zero padding and are skipped.
+template <int HD, int GHD>
 __device__ __forceinline__ void issue_s(float (&sc)[32], uint32_t q_wg, uint32_t kb) {
   using L = Layout<HD>;
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < GHD / 16; ++kk) {
     const uint32_t col = (kk & 3) * 32;  // 16 columns = 32 bytes into the panel
     wgmma_ss_n64(sc, sw128_desc(q_wg + (kk >> 2) * L::kQPanel + col, 16, 1024),
                  sw128_desc(kb + (kk >> 2) * L::kKPanel + col, 16, 1024), kk > 0);
@@ -310,8 +320,10 @@ __device__ __forceinline__ void issue_pv(float (&acc)[HD / 2], const uint32_t (&
   for (int kk = 0; kk < 4; ++kk) wgmma_pv<HD>(acc, p_lo[kk], sw128_desc(vb + kk * 2048, L::kKPanel, 1024));
 }
 
-// Maps: q (hd, S, bh), k and v (hd, S, bh / group), boxes of 64 columns by
-// kBQ (q) or kBK (k, v) rows; o: (bh, S, HD) row-major.
+// HD is the shared-memory layout's head dim (64, 128 or 256), GHD the
+// tensors' (HD, or 96 in the hd-128 layout).  Maps: q (GHD, S, bh), k and v
+// (GHD, S, bh / group), boxes of 64 columns by kBQ (q) or kBK (k, v) rows;
+// o: (bh, S, GHD) row-major.
 //
 // Phase j of a warpgroup (j = 0 .. n_tiles) issues S_j = Q K_j^T (j <
 // n_tiles) and O += P_{j-1} V_{j-1} (j > 0) together, then computes the
@@ -323,7 +335,7 @@ __device__ __forceinline__ void issue_pv(float (&acc)[HD / 2], const uint32_t (&
 // peeled so that every wgmma is issued unconditionally (under a branch
 // ptxas serializes them); a tile none of a warpgroup's rows can see gets
 // P = 0.
-template <int HD>
+template <int HD, int GHD>
 __global__ void __launch_bounds__(kThreads, 1)
 swa_wgmma_kernel(__grid_constant__ const CUtensorMap tq, __grid_constant__ const CUtensorMap tk,
                  __grid_constant__ const CUtensorMap tv, __nv_bfloat16* __restrict__ o, int S,
@@ -481,7 +493,7 @@ swa_wgmma_kernel(__grid_constant__ const CUtensorMap tq, __grid_constant__ const
   refill_and_wait(0);
   turn_wait(wg);
   wgmma_fence();
-  issue_s<HD>(sc, q_wg, sk);
+  issue_s<HD, GHD>(sc, q_wg, sk);
   wgmma_commit();
   turn_pass(wg);
   wgmma_wait<0>();
@@ -495,7 +507,7 @@ swa_wgmma_kernel(__grid_constant__ const CUtensorMap tq, __grid_constant__ const
     const uint32_t kb = sk + (j % kStages) * L::kTileBytes, vb = sv + ((j - 1) % kStages) * L::kTileBytes;
     turn_wait(wg);
     wgmma_fence();
-    issue_s<HD>(sc, q_wg, kb);
+    issue_s<HD, GHD>(sc, q_wg, kb);
     wgmma_commit();
     issue_pv<HD>(acc, p_hi, p_lo, vb);
     wgmma_commit();
@@ -529,15 +541,15 @@ swa_wgmma_kernel(__grid_constant__ const CUtensorMap tq, __grid_constant__ const
 
   if (!has_rows) return;
   const float li0 = fmaxf(l0, 1e-30f), li1 = fmaxf(l1, 1e-30f);
-  __nv_bfloat16* dst = o + (long long)bh * S * HD;
+  __nv_bfloat16* dst = o + (long long)bh * S * GHD;
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
+  for (int n = 0; n < GHD / 8; ++n) {
     const int c = 8 * n + col0;
     if (row0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)row0 * HD + c) =
+      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)row0 * GHD + c) =
           __floats2bfloat162_rn(acc[4 * n] / li0, acc[4 * n + 1] / li0);
     if (row0 + 8 < S)
-      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)(row0 + 8) * HD + c) =
+      *reinterpret_cast<__nv_bfloat162*>(dst + (long long)(row0 + 8) * GHD + c) =
           __floats2bfloat162_rn(acc[4 * n + 2] / li1, acc[4 * n + 3] / li1);
   }
 }
@@ -561,7 +573,8 @@ EncodeTiled encoder() {
 }
 
 // (rows, S, hd) bf16 as a 3-d map with boxes of 64 columns by box_rows rows,
-// 128-byte swizzle; out-of-range rows read as zeros.
+// 128-byte swizzle; out-of-range rows, and columns past hd (hd 96's second
+// panel), read as zeros.
 int encode(CUtensorMap* map, const void* ptr, int rows, int S, int hd, int box_rows) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return fold::kErrTensorMap;
@@ -584,15 +597,15 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int HD>
+template <int HD, int GHD = HD>
 int launch(const Args& a) {
   CUtensorMap tq, tk, tv;
-  int rc = encode(&tq, a.q, a.bh, a.S, HD, kBQ);
-  if (rc == 0) rc = encode(&tk, a.k, a.bkh, a.S, HD, kBK);
-  if (rc == 0) rc = encode(&tv, a.v, a.bkh, a.S, HD, kBK);
+  int rc = encode(&tq, a.q, a.bh, a.S, GHD, kBQ);
+  if (rc == 0) rc = encode(&tk, a.k, a.bkh, a.S, GHD, kBK);
+  if (rc == 0) rc = encode(&tv, a.v, a.bkh, a.S, GHD, kBK);
   if (rc != 0) return rc;
   const size_t bytes = Layout<HD>::kBytes;
-  auto kernel = swa_wgmma_kernel<HD>;
+  auto kernel = swa_wgmma_kernel<HD, GHD>;
   int dev = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -612,7 +625,7 @@ int launch(const Args& a) {
 extern "C" {
 
 // The bf16 tensor-core route of swa_attention_fwd (swa_attention.cu): bh =
-// B*H query rows of (S, hd) and bkh = B*KH kv rows, hd in {64, 128, 256},
+// B*H query rows of (S, hd) and bkh = B*KH kv rows, hd in {64, 96, 128, 256},
 // all contiguous and 16-byte aligned; o has q's shape.  window 0 means no
 // band, causal 0 no causal mask, softcap 0 no capping.
 int swa_attention_wgmma(int hd, const void* q, const void* k, const void* v, void* o, int bh,
@@ -625,6 +638,7 @@ int swa_attention_wgmma(int hd, const void* q, const void* k, const void* v, voi
   const Args a{q, k, v, o, bh, bkh, S, window, causal != 0, scale, softcap, (cudaStream_t)stream};
   switch (hd) {
     case 64: return launch<64>(a);
+    case 96: return launch<128, 96>(a);
     case 128: return launch<128>(a);
     case 256: return launch<256>(a);
     default: return fold::kErrBadArgs;

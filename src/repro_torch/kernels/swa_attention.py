@@ -6,12 +6,14 @@ by :mod:`._build`), both an online softmax over the kv tiles inside the
 band only, m/l/acc in float32, kv head = query head // G; the route is
 chosen by dtype and head_dim alone (:func:`_route`):
 
-* ``"wgmma"`` — ``csrc/swa_wgmma.cu``, bfloat16 at head_dim 64, 128 and
-  256 (every ported config's): Hopper tensor cores (wgmma) fed by TMA, one
-  CTA per (128-row q block, query head), P·V with P split into two bf16
-  parts so the output stays within one bf16 ulp of the float32 version;
+* ``"wgmma"`` — ``csrc/swa_wgmma.cu``, bfloat16 at head_dim 64, 96, 128
+  and 256 (every ported config's): Hopper tensor cores (wgmma) fed by TMA,
+  one CTA per (128-row q block, query head), P·V with P split into two
+  bf16 parts so the output stays within one bf16 ulp of the float32
+  version; hd 96 runs in the hd-128 layout, its 32 extra columns
+  zero-filled in shared memory by TMA (q, k and v are read as they are);
 * ``"cuda_core"`` — ``csrc/swa_attention.cu``, float32 at every head_dim
-  and bfloat16 at 16, 32 and 96: float FMAs on the CUDA cores, one CTA of
+  and bfloat16 at 16 and 32: float FMAs on the CUDA cores, one CTA of
   512 threads per (q block, kv head) serving up to 8 query heads of the
   kv group (64 rows), 256-key tiles staged by ``cp.async`` into a ring;
   :func:`last_launch` reports what its last launch chose.
@@ -37,7 +39,7 @@ import torch
 
 NEG_INF = -2.0 ** 30
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)
-TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
+TENSOR_CORE_HEAD_DIMS = (64, 96, 128, 256)
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 128            # the reference's bq = bk: S must tile by min(128, S)
 

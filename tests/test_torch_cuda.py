@@ -649,7 +649,13 @@ SWA_CASES = [
     (16, 1, 640, 32, 1, True, 0.0),           # G = 16: two CTAs of 8 heads
     (8, 1, 640, 256, 300, True, 50.0),        # G = 8: one CTA of 8 heads
     (4, 1, 384, 256, 300, False, 50.0),       # G = 4, band without causal
-    (6, 2, 256, 96, 100, True, 50.0),         # hd 96 (bf16: CUDA cores)
+    (6, 2, 256, 96, 100, True, 50.0),         # hd 96 (bf16: wgmma, padded)
+    # bf16 hd 96 on the wgmma route (the hd-128 layout, columns 96-127
+    # zero-filled by TMA)
+    (8, 2, 384, 96, 0, True, 0.0),            # G = 4
+    (4, 1, 64, 96, 0, True, 50.0),            # S = 64: a q block past S
+    (4, 4, 512, 96, 200, True, 50.0),         # window no multiple of 64
+    (8, 2, 384, 96, 150, False, 0.0),         # G = 4, band without causal
 ] + [(4, 2, 256, hd, 200, True, cap)          # every head_dim, softcap on/off
      for hd in (16, 32, 64, 96, 128, 256) for cap in (0.0, 50.0)]
 SWA_BF16_LIMIT = dict(rtol=1e-2, atol=1e-4)   # one bf16 ulp (phase 11's)
@@ -679,7 +685,7 @@ def test_cuda_swa_attention_matches_plain(cuda_f32, case, dtype):
 @pytest.mark.parametrize("dtype,hd,route", [
     ("bfloat16", 64, "wgmma"), ("bfloat16", 128, "wgmma"),
     ("bfloat16", 256, "wgmma"), ("bfloat16", 32, "cuda_core"),
-    ("bfloat16", 96, "cuda_core"), ("float32", 64, "cuda_core"),
+    ("bfloat16", 96, "wgmma"), ("float32", 64, "cuda_core"),
     ("float32", 96, "cuda_core"), ("float32", 256, "cuda_core")])
 def test_cuda_swa_attention_takes_its_route(cuda_f32, dtype, hd, route):
     dt = getattr(torch, dtype)

@@ -128,20 +128,24 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", TS.HEAD_DIMS)
 def test_route_is_chosen_by_dtype_and_head_dim(dtype, hd):
-    want = ("wgmma" if dtype == torch.bfloat16 and hd in (64, 128, 256)
+    want = ("wgmma" if dtype == torch.bfloat16 and hd in (64, 96, 128, 256)
             else "cuda_core")
     assert TS._route(dtype, hd) == want
 
 
-def kernel_pv_emulation(q, k, v, *, window, softcap, split):
+def kernel_pv_emulation(q, k, v, *, window, softcap, split, head_dim=None):
     """The wgmma route's arithmetic in torch, dense: float32 scores (scale
     after the bf16 dot), softcap, mask, P = exp(s - max) in float32, P·V
     with P rounded to bf16 as P_hi + P_lo (``split``) or P_hi alone, one
-    division by the float32 row sum, one final bf16 rounding."""
+    division by the float32 row sum, one final bf16 rounding.  Where q, k
+    and v come padded with zero columns (hd 96 in the kernel's hd-128
+    layout), ``head_dim`` is their own width: it sets the scale, and the
+    output keeps that many columns."""
     BH, S, hd = q.shape
+    head_dim = head_dim or hd
     rows = torch.arange(BH) // (BH // k.shape[0])
     s = (q.float() @ k.float()[rows].transpose(-1, -2)) \
-        * float(1.0 / np.sqrt(hd))
+        * float(1.0 / np.sqrt(head_dim))
     s = softcap * torch.tanh(s / softcap)
     qp, kp = torch.arange(S)[:, None], torch.arange(S)[None, :]
     ok = (kp <= qp) & (kp > qp - window)
@@ -150,18 +154,32 @@ def kernel_pv_emulation(q, k, v, *, window, softcap, split):
     p_hi = p.to(torch.bfloat16).float()
     p_in = p_hi + (p - p_hi).to(torch.bfloat16).float() if split else p_hi
     out = (p_in @ v.float()[rows]) / p.sum(dim=-1, keepdim=True)
-    return out.to(torch.bfloat16)
+    return out[..., :head_dim].to(torch.bfloat16)
 
 
-def test_p_split_keeps_the_bf16_route_within_one_ulp():
+@pytest.mark.parametrize("hd,S,pad", [(256, 1024, 0), (96, 384, 32)])
+def test_p_split_keeps_the_bf16_route_within_one_ulp(hd, S, pad):
     # gemma2-like head: hd 256, softcap 50, a window that is no tile
-    # multiple; the split P·V passes the card limit, P in bf16 alone fails it
+    # multiple; the split P·V passes the card limit, P in bf16 alone fails
+    # it.  phi-3-vision's hd 96 runs in the hd-128 layout: the emulation
+    # takes q, k and v with the 32 zero columns TMA fills in, and is held
+    # against the plain version and the reference's kernel too
     q, k, v = (torch.as_tensor(a).to(torch.bfloat16)
-               for a in qkv(6, 2, 1, 1024, 256))
+               for a in qkv(6, 2, 1, S, hd))
     kw = dict(window=300, softcap=50.0)
     want = TS.swa_attention_plain(q, k, v, **kw).float()
     limit = 1e-4 + 1e-2 * want.abs()
-    split = kernel_pv_emulation(q, k, v, split=True, **kw).float()
-    hi_only = kernel_pv_emulation(q, k, v, split=False, **kw).float()
+    padded = [torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v)]
+    split = kernel_pv_emulation(*padded, split=True, head_dim=hd,
+                                **kw).float()
+    hi_only = kernel_pv_emulation(*padded, split=False, head_dim=hd,
+                                  **kw).float()
+    assert split.shape == want.shape
     assert bool(((split - want).abs() <= limit).all())
     assert float(((hi_only - want).abs() / limit).max()) > 1.0
+    if pad:
+        ref = torch.as_tensor(np.asarray(jax_swa(
+            *(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+              for t in (q, k, v)), interpret=True, **kw), np.float32))
+        assert bool(((split - ref).abs() <= 1e-4 + 1e-2 * ref.abs()).all())
+        assert bool(((want - ref).abs() <= 1e-4 + 1e-2 * ref.abs()).all())
