@@ -170,7 +170,9 @@ phi-3-vision-4.2b) — on one CUDA card at full size:
      clause against a float32 forward of the same weights
      (MAX_TOP1_EXCESS_BF16) and against the einsum route
      (MIN_TOP1_ROUTES_BF16), each route's lm_loss gap to that float32
-     forward's (printed, not gated), the layer gates (each decoder layer's
+     forward's (printed), the kernel route's lm_loss within
+     TOL_LOSS_KERNEL_F32 = 2e-5 of that float32 forward's (relative; the
+     share of the limit printed), the layer gates (each decoder layer's
      update gap, the kernel on one route only), which a planted fault (every
      decoder layer reads the cross cache of the layer before it) must
      fail; the profiler's device ms by part (the encoder alone, then the
@@ -183,18 +185,33 @@ phi-3-vision-4.2b) — on one CUDA card at full size:
      its bytes bound, the idle share; (d) phi-3-vision-4.2b bf16 at full
      width and depth (32 layers, d 3072, CLIP stubbed), B=4 x (576
      patches + 448 tokens): both routes (32 wgmma launches a forward at
-     hd 96) under (a)'s gates, which a planted fault (the patches
-     after the text) must fail; lm_loss over the text positions only
+     hd 96) under (a)'s gates (the kernel-vs-float32 lm_loss gate
+     among them), which a planted fault (the patches after the text)
+     must fail; lm_loss over the text positions only
      (B x 448 labels); (e) the same in f32 at depth 2 under the f32
      gates; greedy serving B=2 x (576 + 448) + 32 in bf16 and (exact) in
-     f32 at depth 2; then the ``kernels`` line;
+     f32 at depth 2; then the ``kernels`` line.  Every serving check of
+     phases 13, 17(c), 18, 19 and 20 (c), (e) has a graphed leg
+     (``graphed_leg``): ``generate_jit`` (the decode step captured as a
+     CUDA graph and replayed) on the eager run's inputs, three calls,
+     tokens, lengths and iters equal to the eager run's, the first
+     step's and every step's max|dlogits| against the eager run's (f32:
+     within TOL_LOGITS_F32), decode ms a step, and the same step issued
+     eagerly against its replays under the profiler (wall and busy a
+     step, idle share, host launches a step); in 19(c) f32 a planted
+     fault (the graph captured with the position frozen) must fail that
+     gate.  20(a)'s gated run issues its steps eagerly and its plain run
+     replays the captured step (the two identical, each profiled over
+     segment 2), 20(e)'s two sampled runs likewise; a ``[main]`` line
+     lists every leg;
  20. the serve tier, run inside phases 12-13 on their models: (a)
      gemma2-9b bf16 at full width through ``ContinuousEngine`` on the
      first 22 of the 42 layers of phases 12-13's model (cut for the
      script's time; 4 slots, segment 8, the pool bound at 4576: max_seq
      4608 > the 4096 window, so the 11 local layers' ring caches take
      ragged prefills), 12 requests from ``--seed`` (prompts 512-4576, budgets
-     4-32): every rid once, two runs identical (tokens, order, stats),
+     4-32): every rid once, the eager and the graphed engine identical
+     (tokens, order, stats),
      the tokens against the argmax of unpadded B=1 forwards on >= 0.95
      of positions, and after each admission a layer gate against a solo
      unpadded prefill (K/V rows at real positions within an update gap
@@ -211,8 +228,11 @@ phi-3-vision-4.2b) — on one CUDA card at full size:
      (max|dlogits| < 0.15, correlation > 0.995; the caches' GB); (d)
      mamba2-130m bf16: ``Batcher.run_continuous`` falls back to
      exact-length groups with ``run_all``'s tokens; (e) sampled decode
-     at temperature 0.8 on (b)'s model: two runs identical, a killed and
-     resumed run equal to the uninterrupted one;
+     at temperature 0.8 on (b)'s model: the eager and the graphed
+     engine identical, a killed and resumed run equal to the
+     uninterrupted one, sampled ``generate`` B=2 x 256 + 32 and its
+     graphed leg; (c) also serves B=2 x 4576 + 16 on the int8 cache with
+     its graphed leg;
  21. training (after phase 19): (a) qwen3-1.7b bf16 at full width and
      depth (28 layers, remat on), 12 Trainer.run steps on SyntheticLM at
      global batch 8 x 2048 (accum 4) with the cosine schedule, the last
@@ -331,6 +351,12 @@ TOL_LOGITS_BF16 = 0.5
 MIN_TOP1_BF16 = 0.99
 TOL_LOGITS_F32 = 1e-3  # f32 depth-2 forward, the two routes' logits (atol)
 TOL_LOSS_F32 = 1e-5    # ... and their lm_loss (relative)
+# phase 19's bf16 forwards: the kernel route's lm_loss against a float32
+# forward of the same weights (relative), the gate on the code under test
+# beside TOL_LOSS_BF16's kernel-vs-einsum gap (which the einsum route's own
+# bf16 rounding carries).  The first readings: phi-3-vision 8.686e-6,
+# whisper-base 1.515e-6; the planted patch order 1.48e-3.
+TOL_LOSS_KERNEL_F32 = 2e-5
 LM_ARCH = "gemma2-9b"  # phases 12-13: full width
 LM_SEQ = 8192          # phase 12: the model's context
 SERVE_PROMPT, SERVE_NEW = 4576, 32   # phase 13: max_seq 4608 > window 4096
@@ -3145,10 +3171,11 @@ def phase13(gen, model, cfg, label, cache_dtype):
     del caches
     gcfg = GenerateConfig(max_new_tokens=N, eos_id=1)
     runs = []
-    for _ in range(2):
-        runs.append(wall(lambda: generate(cfg, model, prompt, gcfg,
-                                          max_seq=max_seq,
-                                          cache_dtype=cache_dtype)))
+    with recorded_step_logits(B, N, cfg.padded_vocab, P) as eager_logits:
+        for _ in range(2):
+            runs.append(wall(lambda: generate(cfg, model, prompt, gcfg,
+                                              max_seq=max_seq,
+                                              cache_dtype=cache_dtype)))
     (out, lengths, iters), t_gen = runs[0]
     (out2, lengths2, iters2), t_gen2 = runs[1]
     same = (torch.equal(out, out2) and torch.equal(lengths, lengths2)
@@ -3204,13 +3231,17 @@ def phase13(gen, model, cfg, label, cache_dtype):
         f"on {hits}/{total} tokens ({agree:.4f})")
     if not same:
         raise AssertionError(f"phase13 {label}: two greedy runs differ")
+    graphed = graphed_leg("phase13", label, cfg, model, prompt, gcfg,
+                          cache_dtype, {}, (out, lengths, iters),
+                          eager_logits, t_pre=t_pre)
+    del eager_logits
     if launched != cfg.num_layers or rings != cfg.num_layers // 2:
         raise AssertionError(
             f"phase13 {label}: teacher-forced forward launched {launched} "
             f"kernels, {rings} ring caches")
     return dict(prefill_s=t_pre, generate_s=(t_gen, t_gen2),
                 decode_ms=decode_ms, step_ms=step_ms, iters=int(iters),
-                agree=agree,
+                agree=agree, graphed=graphed,
                 same=same, decode_idle=1 - busy / secs)
 
 
@@ -3321,17 +3352,21 @@ def serve20_requests(seed, cfg, n, lens, budgets):
 
 
 def serve20_engine(cfg, model, gcfg, *, gate=None, plen_shift=0,
-                   slot_shift=0, profile_at=None, **kw):
+                   slot_shift=0, profile_at=None, eager=False, **kw):
     """A ContinuousEngine whose admissions can be checked (``gate(caches,
     idx, prompt, plen)`` after each) or broken (``plen_shift``: the prefill
     lets that many pad keys in; ``slot_shift``: the admission writes
-    another slot), and one of whose segments can be profiled
-    (``profile_at``: the segment's ordinal).  The hooks live on the
-    instance, not in the class's closures, so that dropping the engine
-    frees the model and the pool the gate reaches."""
+    another slot), one of whose segments can be profiled (``profile_at``:
+    the segment's ordinal), and whose body step is issued eagerly
+    (``eager``) in place of the captured graph's replay.  The hooks live
+    on the instance, not in the class's closures, so that dropping the
+    engine frees the model and the pool the gate reaches."""
     from repro_torch.serve import ContinuousEngine
 
     class Engine(ContinuousEngine):
+        def _step_runner(self, step):
+            return step if self.eager else super()._step_runner(step)
+
         def _fresh_prefill(self, prompt, plen):
             return super()._fresh_prefill(prompt, plen + self.plen_shift)
 
@@ -3360,6 +3395,7 @@ def serve20_engine(cfg, model, gcfg, *, gate=None, plen_shift=0,
             return res[0]
     eng = Engine(cfg, model, gcfg, **kw)
     eng.gate, eng.plen_shift, eng.slot_shift = gate, plen_shift, slot_shift
+    eng.eager = eager
     eng.profile_at, eng.profile, eng.n_seg = profile_at, None, 0
     return eng
 
@@ -3462,13 +3498,18 @@ def phase20a(cfg, model, seed):
               max_prompt_len=S0, cache_dtype=torch.bfloat16)
     gate, g = admission_gate(cfg, model, torch.bfloat16,
                              S0 + SERVE20_CAP)
-    eng1 = serve20_engine(cfg, model, gcfg, gate=gate, profile_at=2, **kw)
+    # the gated run issues its steps eagerly; the plain run replays the
+    # captured step: the two must emit the same tokens in the same order
+    eng1 = serve20_engine(cfg, model, gcfg, gate=gate, profile_at=2,
+                          eager=True, **kw)
     seq1, secs1 = serve_run(eng1, reqs)
     prof, st1 = eng1.profile, without_wall(eng1.stats)
     del eng1
-    eng2 = serve20_engine(cfg, model, gcfg, **kw)
+    eng2 = serve20_engine(cfg, model, gcfg, profile_at=2, **kw)
     seq2, secs = serve_run(eng2, reqs)
-    st = eng2.stats
+    st, gprof = eng2.stats, eng2.profile
+    step2 = dict(calls=eng2._step.calls, replays=eng2._step.replays,
+                 captures=eng2._step.captures)
     del eng2
     torch.cuda.empty_cache()
     same = seq1 == seq2 and st1 == without_wall(st)
@@ -3525,16 +3566,21 @@ def phase20a(cfg, model, seed):
         f"{st['idle_slot_steps']}; wall {secs:.3f} s ({secs / max(st['segments'], 1) * 1e3:.1f} "
         f"ms a segment, admissions included), {n_tok} tokens: "
         f"{secs / max(n_tok, 1) * 1e3:.2f} ms per generated token, "
-        f"{n_tok / secs:.1f} tokens/s; every rid once {once}; two runs "
-        f"identical (tokens, order, stats) {same}")
-    if prof:
-        log(f"[phase20] (a) segment 2 under the profiler: {steps} steps, "
-            f"wall {prof['secs'] / max(steps, 1) * 1e3:.3f} ms a step, "
-            f"device busy {prof['busy'] / max(steps, 1) * 1e3:.3f} ms (idle "
-            f"share {1 - prof['busy'] / prof['secs']:.3f}), "
-            f"{sum(r[1] for r in prof['rows']) / max(steps, 1):.0f} kernels "
-            f"a step")
-        for us, count, key in prof["rows"][:6]:
+        f"{n_tok / secs:.1f} tokens/s (the graphed engine); every rid once "
+        f"{once}; the eager and the graphed engine identical (tokens, "
+        f"order, stats) {same}; the graphed body step: {step2['calls']} "
+        f"steps, {step2['replays']} replays, {step2['captures']} capture")
+    for name, pr in (("eager", prof), ("graphed", gprof)):
+        if not pr:
+            continue
+        n = max(pr["steps"], 1)
+        log(f"[phase20] (a) segment 2 under the profiler, {name}: "
+            f"{pr['steps']} steps, wall {pr['secs'] / n * 1e3:.3f} ms a "
+            f"step, device busy {pr['busy'] / n * 1e3:.3f} ms (idle share "
+            f"{1 - pr['busy'] / pr['secs']:.3f}), "
+            f"{sum(r[1] for r in pr['rows']) / n:.0f} kernels a step from "
+            f"{'1 host launch' if name == 'graphed' else 'as many launches'}")
+        for us, count, key in pr["rows"][:6]:
             log(f"[phase20]   {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
     log(f"[phase20] (a) teacher-forced argmax (unpadded B=1 forwards): "
         f"{hits}/{total} ({hits / max(total, 1):.4f}; limit "
@@ -3560,13 +3606,27 @@ def phase20a(cfg, model, seed):
         f"{secs_tf:.1f}, the planted faults {t_faults:.1f}, run_all "
         f"{secs_all:.1f}")
     if not (once and same):
-        raise AssertionError(f"phase20 (a): every rid once {once}, two "
-                             f"runs identical {same}")
+        raise AssertionError(f"phase20 (a): every rid once {once}, eager "
+                             f"and graphed identical {same}")
+    if not (step2["captures"] == 1 and step2["replays"] > 0):
+        raise AssertionError(f"phase20 (a): the engine replayed no "
+                             f"captured step: {step2}")
     if hits < MIN_AGREE_SERVE_BF16 * total:
         raise AssertionError(f"phase20 (a): teacher-forced agreement "
                              f"{hits}/{total}")
     if not serve20_gates_pass(g) or g["admissions"] != len(reqs):
         raise AssertionError(f"phase20 (a): the layer gates fail: {g}")
+    if prof and gprof:
+        GRAPH_LEGS.append(dict(
+            label=f"phase20 (a) {LM_ARCH} bf16 depth {cfg.num_layers} "
+            "ContinuousEngine, segment 2", same=same, **{
+                f"{k}_{q}": v for k, pr in (("eager", prof),
+                                            ("graph", gprof))
+                for q, v in (("ms", pr["secs"] / pr["steps"] * 1e3),
+                             ("busy_ms", pr["busy"] / pr["steps"] * 1e3),
+                             ("idle", 1 - pr["busy"] / pr["secs"]))},
+            eager_launches=sum(r[1] for r in prof["rows"]) / prof["steps"],
+            graph_launches=1))
     for name, gf in faults.items():
         if serve20_gates_pass(gf):
             raise AssertionError(f"phase20 (a): the layer gates pass the "
@@ -3578,7 +3638,11 @@ def phase20a(cfg, model, seed):
                 run_all_idle=idle_all, run_all_slot_steps=slot_all,
                 step_ms=prof["secs"] / max(steps, 1) * 1e3 if prof else None,
                 busy_ms=prof["busy"] / max(steps, 1) * 1e3 if prof else None,
-                idle_share=1 - prof["busy"] / prof["secs"] if prof else None)
+                idle_share=1 - prof["busy"] / prof["secs"] if prof else None,
+                graphed=dict(step2, **({} if not gprof else dict(
+                    step_ms=gprof["secs"] / max(gprof["steps"], 1) * 1e3,
+                    busy_ms=gprof["busy"] / max(gprof["steps"], 1) * 1e3,
+                    idle_share=1 - gprof["busy"] / gprof["secs"]))))
 
 
 def phase20b(cfg, model, seed):
@@ -3713,8 +3777,26 @@ def phase20c(cfg, model, gen):
     if not (d < TOL_INT8_LOGITS and corr > MIN_INT8_CORR):
         raise AssertionError(f"phase20 (c): int8 cache off the bf16 one: "
                              f"{d!r}, {corr!r}")
+    # the int8 cache served: eager generate, then its graphed leg
+    from repro_torch.serve import GenerateConfig, generate, prefill
+    prompt = tokens[:, :P]
+    gcfg = GenerateConfig(max_new_tokens=N, eos_id=1)
+    with recorded_step_logits(B, N, cfg.padded_vocab, P) as eager_logits:
+        eager, t_gen = wall(lambda: generate(cfg, model, prompt, gcfg,
+                                             quant=True))
+    t_pre = sum(wall(lambda: prefill(cfg, model, prompt, max_seq=P + N,
+                                     quant=True))[1] for _ in range(2)) / 2
+    log(f"[phase20] (c) {LM_ARCH} bf16 int8 KV cache, greedy serving B={B} x"
+        f" {P} + {N}: prefill {t_pre:.4f} s (warm), generate {t_gen:.4f} s,"
+        f" iters {int(eager[2])}, decode "
+        f"{(t_gen - t_pre) / max(int(eager[2]), 1) * 1e3:.3f} ms per step "
+        f"((generate - warm prefill) / iters)")
+    graphed = graphed_leg("phase20", f"(c) {LM_ARCH} bf16 int8 KV cache",
+                          cfg, model, prompt, gcfg, torch.bfloat16, {},
+                          eager, eager_logits, t_pre=t_pre, quant=True)
+    del eager_logits
     return dict(max_dlogits=d, corr=corr, gb_int8=gb[True],
-                gb_bf16=gb[False])
+                gb_bf16=gb[False], graphed=graphed)
 
 
 def phase20d(gen, seed):
@@ -3777,7 +3859,10 @@ def phase20e(cfg, model, seed):
         return ContinuousEngine(cfg, model, gcfg, slots=slots,
                                 segment=SERVE20_SEGMENT,
                                 cache_dtype=torch.float32)
-    a, _ = serve_run(engine(), reqs)
+    # one run issues its body steps eagerly, the other replays them
+    a, _ = serve_run(serve20_engine(
+        cfg, model, gcfg, eager=True, slots=SERVE20_SLOTS,
+        segment=SERVE20_SEGMENT, cache_dtype=torch.float32), reqs)
     b, _ = serve_run(engine(), reqs)
     fired = False
     with tempfile.TemporaryDirectory(prefix="phase20e_") as tmp:
@@ -3792,12 +3877,33 @@ def phase20e(cfg, model, seed):
     torch.cuda.empty_cache()
     ok = a == b and fired and sorted(resumed) == sorted(a)
     log(f"[phase20] (e) sampled decode, temperature 0.8, {LM_ARCH} f32 "
-        f"depth 2, {len(reqs)} requests: two runs identical {a == b}; "
-        f"killed at segment 3 {fired} and resumed on 2 slots equal to the "
-        f"uninterrupted run {sorted(resumed) == sorted(a)}")
+        f"depth 2, {len(reqs)} requests: the eager and the graphed engine "
+        f"identical {a == b}; killed at segment 3 {fired} and resumed on 2 "
+        f"slots equal to the uninterrupted run "
+        f"{sorted(resumed) == sorted(a)}")
     if not ok:
         raise AssertionError("phase20 (e): sampled decode not reproducible")
-    return dict(repeat=a == b, resumed=sorted(resumed) == sorted(a))
+    # round mode: sampled generate against its graphed leg
+    import numpy as np
+    from repro_torch.serve import generate, prefill
+    B, S0, N = 2, SERVE20_E_PROMPTS[0], SERVE20_CAP
+    prompt = torch.as_tensor(np.stack([r.prompt[:S0] for r in reqs[:B]]),
+                             device=DEVICE)
+    with recorded_step_logits(B, N, cfg.padded_vocab, S0) as eager_logits:
+        eager, t_gen = wall(lambda: generate(cfg, model, prompt, gcfg,
+                                             cache_dtype=torch.float32))
+    t_pre = sum(wall(lambda: prefill(cfg, model, prompt, max_seq=S0 + N,
+                                     cache_dtype=torch.float32))[1]
+                for _ in range(2)) / 2
+    log(f"[phase20] (e) sampled generate B={B} x {S0} + {N}: prefill "
+        f"{t_pre:.4f} s (warm), generate {t_gen:.4f} s, iters "
+        f"{int(eager[2])}, lengths {eager[1].tolist()}")
+    graphed = graphed_leg("phase20", f"(e) {LM_ARCH} f32 depth 2 sampled",
+                          cfg, model, prompt, gcfg, torch.float32, {}, eager,
+                          eager_logits, t_pre=t_pre)
+    del eager_logits
+    return dict(repeat=a == b, resumed=sorted(resumed) == sorted(a),
+                graphed=graphed)
 
 
 # ---------------------------------------------------------------------------
@@ -4657,7 +4763,14 @@ def bf16_gates(g) -> bool:
     return (g["loss_rel"] <= TOL_LOSS_BF16
             and g["max_dlogits"] <= TOL_LOGITS_BF16
             and g["top1_excess"] <= MAX_TOP1_EXCESS_BF16
-            and g["top1"] >= MIN_TOP1_ROUTES_BF16)
+            and g["top1"] >= MIN_TOP1_ROUTES_BF16
+            and kernel_f32_gate(g))
+
+
+def kernel_f32_gate(g) -> bool:
+    """The kernel route's lm_loss within TOL_LOSS_KERNEL_F32 (relative) of
+    the float32 forward's."""
+    return g["loss_kernel_f32"] <= TOL_LOSS_KERNEL_F32
 
 
 def f32_twin(cfg, model, batch):
@@ -4711,6 +4824,7 @@ def context_route_compare(cfg, model, batch, planted):
         gap["loss_rel_f32"] = {
             route: abs(loss - loss_32) / abs(loss_32)
             for route, loss in (("kernel", loss_k), ("einsum", loss_e))}
+        gap["loss_kernel_f32"] = gap["loss_rel_f32"]["kernel"]
         gap["top1_f32"] = top1_share(logits_k, truth)
         gap["top1_einsum_f32"] = top1_share(logits_e, truth)
         gap["top1_excess"] = gap["top1_einsum_f32"] - gap["top1_f32"]
@@ -4730,6 +4844,8 @@ def context_route_compare(cfg, model, batch, planted):
         loss_f = float(lm_loss(cfg, model, batch)[0])
     fault = route_gap(logits_f, loss_f, logits_e, loss_e)
     if truth is not None:
+        fault["loss_kernel_f32"] = abs(loss_f - gap["loss_f32"]) / abs(
+            gap["loss_f32"])
         fault["top1_f32"] = top1_share(logits_f, truth)
         fault["top1_einsum_f32"] = gap["top1_einsum_f32"]
         fault["top1_excess"] = gap["top1_einsum_f32"] - fault["top1_f32"]
@@ -4750,6 +4866,11 @@ def context_gate_line(g) -> str:
             f"f32 one), max|dlogits| {g['max_dlogits']:.4g} "
             f"({g['max_dlogits'] / TOL_LOGITS_BF16:.3f} / "
             f"{g['max_dlogits'] / TOL_LOGITS_F32:.3f}), top-1 {g['top1']:.5f}")
+    if "loss_kernel_f32" in g:
+        line += (f"; the kernel route's lm_loss against the f32 forward's: "
+                 f"rel {g['loss_kernel_f32']:.4g} "
+                 f"({g['loss_kernel_f32'] / TOL_LOSS_KERNEL_F32:.3f} of its "
+                 f"limit {TOL_LOSS_KERNEL_F32})")
     if "top1_f32" in g:
         line += (f"; top-1 against the f32 forward {g['top1_f32']:.5f} (the "
                  f"einsum route's {g['top1_einsum_f32']:.5f}; excess "
@@ -4830,6 +4951,21 @@ def report_context_forward(label, cfg, r, S, B, route, gates):
         raise AssertionError(f"phase19 {label}: the layer gates pass the "
                              f"planted fault: "
                              f"{context_layer_line(r['fault']['layer'])}")
+    if "loss_kernel_f32" in r:
+        log(f"[phase19] {label}: the kernel route's lm_loss against the "
+            f"float32 forward's: rel {r['loss_kernel_f32']:.4g} "
+            f"({r['loss_kernel_f32'] / TOL_LOSS_KERNEL_F32:.3f} of the "
+            f"{TOL_LOSS_KERNEL_F32} limit), the planted fault's "
+            f"{r['fault']['loss_kernel_f32']:.4g} "
+            f"({r['fault']['loss_kernel_f32'] / TOL_LOSS_KERNEL_F32:.3f}): "
+            f"the gate passes the route {kernel_f32_gate(r)} and the fault "
+            f"{kernel_f32_gate(r['fault'])}")
+        if not kernel_f32_gate(r) or kernel_f32_gate(r["fault"]):
+            raise AssertionError(
+                f"phase19 {label}: the kernel-vs-float32 lm_loss gate: route "
+                f"{r['loss_kernel_f32']!r}, planted fault "
+                f"{r['fault']['loss_kernel_f32']!r} (limit "
+                f"{TOL_LOSS_KERNEL_F32})")
 
 
 def whisper_breakdown(cfg, model, batch) -> dict:
@@ -4885,9 +5021,148 @@ def step_logits(cfg, model, prompt, out, cache_dtype, serve_kw):
     return torch.stack(rows, dim=1)
 
 
+# ---------------------------------------------------------------------------
+# compiled decode: each serving check's graphed leg (generate_jit)
+# ---------------------------------------------------------------------------
+
+GRAPH_STEPS = 8        # eager steps and graph replays under the profiler
+GRAPH_LEGS = []        # every graphed leg's readings, for the [main] line
+# phase 13 (bf16, f32), 20(a) continuous, 20(c) int8, 20(e) sampled, 17(c)
+# (bf16, f32), 18 (mamba2, jamba), 19 (whisper bf16, f32; phi-3 bf16, f32)
+GRAPH_LEG_COUNT = 13
+
+
+@contextlib.contextmanager
+def recorded_step_logits(B, N, V, base, frozen=False):
+    """Each decode step's logits, recorded into a (B, N, V) float32 buffer
+    at column ``pos - base`` by a wrapper of ``decode_step`` (which both
+    ``generate`` and ``generate_jit`` call; a graph captured inside the
+    block keeps recording on every replay).  ``frozen``: the planted
+    fault -- the step is called at the first position it saw, so a graph
+    captured inside the block replays that position forever."""
+    import torch
+    from repro_torch.models import transformer as T
+    buf = torch.zeros((B, N, V), dtype=torch.float32, device=DEVICE)
+    real, seen = T.decode_step, {}
+
+    def step(cfg, params, caches, tokens, pos, **kw):
+        col = (pos - base).long().reshape(1)
+        if frozen:
+            pos = seen.setdefault("pos", pos.clone())
+        logits, caches = real(cfg, params, caches, tokens, pos, **kw)
+        buf.index_copy_(1, col, logits.float())
+        return logits, caches
+    T.decode_step = step
+    try:
+        yield buf
+    finally:
+        T.decode_step = real
+
+
+def graph_gate(same, d_steps, f32) -> bool:
+    """Graphed against eager: tokens, lengths and iters equal, and in
+    float32 every step's logits within phase 12's f32 limit."""
+    return same and (not f32 or d_steps <= TOL_LOGITS_F32)
+
+
+def graphed_leg(phase, label, cfg, model, prompt, gcfg, cache_dtype,
+                serve_kw, eager, eager_logits, *, t_pre, quant=False,
+                plant_frozen=False):
+    """``generate_jit`` on an eager serving run's inputs: three calls (the
+    first captures), each held against the eager run's ``(out, lengths,
+    iters)``; the first step's and every step's logits (all but the last,
+    which a replay past the stop may recompute) against the eager run's
+    (``eager_logits``, recorded the same way); decode ms a step
+    ((generate_jit - warm prefill) / iters); then GRAPH_STEPS of the same
+    gated step issued eagerly and GRAPH_STEPS graph replays under the
+    profiler (past the stop: each does a step's whole work): wall and
+    device busy a step, idle share, kernels a step.  ``plant_frozen``:
+    the graph captured with the position frozen must fail the gate."""
+    import torch
+    from repro_torch.serve import generate_jit
+    B, S0 = prompt.shape
+    P, N, V = cfg.vision_patches or 0, gcfg.max_new_tokens, cfg.padded_vocab
+    out, lengths, iters = eager
+    kw = dict(cache_dtype=cache_dtype, quant=quant)
+    f32 = cache_dtype == torch.float32
+    n = max(int(iters) - 1, 1)
+
+    def equal(res):
+        o, l, i = res
+        return (torch.equal(o, out) and torch.equal(l, lengths)
+                and int(i) == int(iters))
+    with recorded_step_logits(B, N, V, S0 + P) as logits:
+        run = generate_jit(cfg, gcfg, **kw)
+        calls = [wall(lambda: run(model, prompt, **serve_kw))
+                 for _ in range(3)]
+    same = all(equal(res) for res, _ in calls)
+    calls_s = [t for _, t in calls]
+    d_first = max_err(logits[:, 0], eager_logits[:, 0])
+    d_steps = max_err(logits[:, :n], eager_logits[:, :n])
+    decode_ms = (sum(calls_s[1:]) / 2 - t_pre) / max(int(iters), 1) * 1e3
+    st = run.stats
+    g = next(iter(run.compiled.values())).graph
+    with torch.no_grad():
+        e_secs, e_busy, e_rows = profiled(
+            lambda: [g.step() for _ in range(GRAPH_STEPS)], cpu=False)
+    g_secs, g_busy, g_rows = profiled(
+        lambda: [g() for _ in range(GRAPH_STEPS)], cpu=False)
+    r = dict(label=f"{phase} {label}", same=same, d_first=d_first,
+             d_steps=d_steps, iters=int(iters), steps=st["steps"],
+             replays=st["replays"], checks=st["checks"],
+             decode_ms=decode_ms,
+             eager_ms=e_secs / GRAPH_STEPS * 1e3,
+             eager_busy_ms=e_busy / GRAPH_STEPS * 1e3,
+             eager_idle=1 - e_busy / e_secs,
+             eager_launches=sum(c for _, c, _ in e_rows) / GRAPH_STEPS,
+             graph_ms=g_secs / GRAPH_STEPS * 1e3,
+             graph_busy_ms=g_busy / GRAPH_STEPS * 1e3,
+             graph_idle=1 - g_busy / g_secs,
+             graph_kernels=sum(c for _, c, _ in g_rows) / GRAPH_STEPS,
+             graph_launches=1, calls_s=calls_s)
+    del run, g, calls
+    log(f"[{phase}] {label}: graphed generate_jit: calls "
+        f"{' / '.join(f'{t:.4f}' for t in calls_s)} s (the first "
+        f"captures), {st['steps']} steps issued, {st['replays']} graph "
+        f"replays, {st['checks']} host reads (iters {int(iters)} a call); "
+        f"decode {decode_ms:.3f} ms per "
+        f"step ((generate_jit - warm prefill) / iters); tokens, lengths and "
+        f"iters equal to the eager run's {same}; max|dlogits| first step "
+        f"{d_first:.4g}, every step but the last {d_steps:.4g}")
+    log(f"[{phase}] {label}: the decode step, {GRAPH_STEPS} of each: eager "
+        f"wall {r['eager_ms']:.3f} ms a step, device busy "
+        f"{r['eager_busy_ms']:.3f} ms (idle share {r['eager_idle']:.3f}), "
+        f"{r['eager_launches']:.0f} host launches a step; graphed wall "
+        f"{r['graph_ms']:.3f} ms a step, device busy "
+        f"{r['graph_busy_ms']:.3f} ms (idle share {r['graph_idle']:.3f}), "
+        f"{r['graph_kernels']:.0f} kernels from 1 host launch (a replay)")
+    if plant_frozen:
+        with recorded_step_logits(B, N, V, S0 + P, frozen=True) as flog:
+            res = generate_jit(cfg, gcfg, **kw)(model, prompt, **serve_kw)
+        fault = dict(same=equal(res), d_steps=max_err(flog[:, :n],
+                                                      eager_logits[:, :n]))
+        fault["passes"] = graph_gate(fault["same"], fault["d_steps"], f32)
+        r["fault"] = fault
+        log(f"[{phase}] {label}: planted fault (the graph captured with the "
+            f"position frozen): tokens, lengths and iters equal "
+            f"{fault['same']}, max|dlogits| every step but the last "
+            f"{fault['d_steps']:.4g}: the gate passes it {fault['passes']}")
+        del flog
+    del logits
+    torch.cuda.empty_cache()
+    GRAPH_LEGS.append(r)
+    if not graph_gate(same, d_steps, f32):
+        raise AssertionError(f"{phase} {label}: graphed decode differs from "
+                             f"eager: {r}")
+    if plant_frozen and r["fault"]["passes"]:
+        raise AssertionError(f"{phase} {label}: the graphed gate passes a "
+                             "graph captured with the position frozen")
+    return r
+
+
 def family_serve(phase, gen, cfg, model, label, prompt_len, cache_dtype,
                  rate, *, B=2, N=SERVE_FAMILY_NEW, batch=None, profile=True,
-                 planted_swap=False):
+                 planted_swap=False, plant_frozen=False):
     """Greedy serving: ``B`` prompts of ``prompt_len`` tokens (after the
     ``batch``'s patches, or over its frames: the encoder's output and cross
     caches made once) and ``N`` new ones, run twice; against the
@@ -4895,8 +5170,10 @@ def family_serve(phase, gen, cfg, model, label, prompt_len, cache_dtype,
     greedy = argmax, and with float32 caches every step's logits
     (``step_logits``) against the forward's; warm prefill, decode ms a step, ``decode_step`` alone, the
     decode bound (decoder weights, self and cross caches) and
-    (``profile``) the device's idle share over decode steps.  With
-    ``planted_swap`` the cross caches' batch rows are rolled by one."""
+    (``profile``) the device's idle share over decode steps; then the
+    graphed leg (``graphed_leg``; ``plant_frozen`` plants its fault).  With
+    ``planted_swap`` the cross caches' batch rows are rolled by one (and
+    no graphed leg runs)."""
     import dataclasses
     import torch
     from repro_torch.models import transformer as T
@@ -4918,9 +5195,10 @@ def family_serve(phase, gen, cfg, model, label, prompt_len, cache_dtype,
     elif "patch_embeds" in extras:
         serve_kw = dict(patch_embeds=extras["patch_embeds"])
     gcfg = GenerateConfig(max_new_tokens=N, eos_id=1)
-    runs = [wall(lambda: generate(cfg, model, prompt, gcfg,
-                                  cache_dtype=cache_dtype, **serve_kw))
-            for _ in range(2)]
+    with recorded_step_logits(B, N, cfg.padded_vocab, S0 + P) as eager_logits:
+        runs = [wall(lambda: generate(cfg, model, prompt, gcfg,
+                                      cache_dtype=cache_dtype, **serve_kw))
+                for _ in range(2)]
     (out, lengths, iters), t_gen = runs[0]
     (out2, lengths2, iters2), t_gen2 = runs[1]
     same = (torch.equal(out, out2) and torch.equal(lengths, lengths2)
@@ -4975,6 +5253,11 @@ def family_serve(phase, gen, cfg, model, label, prompt_len, cache_dtype,
             log(f"[{phase}]   {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
     del caches
     torch.cuda.empty_cache()
+    graphed = None if planted_swap else graphed_leg(
+        phase, label, cfg, model, prompt, gcfg, cache_dtype, serve_kw,
+        (out, lengths, iters), eager_logits, t_pre=t_pre,
+        plant_frozen=plant_frozen)
+    del eager_logits
     agree = hits / total
     log(f"[{phase}] {label}: greedy serving B={B} prompt "
         f"{f'{P} patches + ' if P else ''}{S0} + {N} new"
@@ -4996,7 +5279,7 @@ def family_serve(phase, gen, cfg, model, label, prompt_len, cache_dtype,
                 decode_ms=decode_ms, step_ms=step_ms, bound_ms=bound_ms,
                 bound_gb=gb, iters=int(iters), agree=agree, same=same,
                 idle=idle, kernels=kernels, steps_gap=steps_gap,
-                launched=launched)
+                launched=launched, graphed=graphed)
 
 
 def exact_serving(r) -> bool:
@@ -5042,7 +5325,7 @@ def phase19(gen, rate):
         r["serve"] = family_serve(
             "phase19", gen, c, model, f"(c) {AUDIO_ARCH} {dtype}",
             AUDIO_SERVE_PROMPT, torch.bfloat16 if bf16 else torch.float32,
-            rate, profile=bf16, **serve)
+            rate, profile=bf16, plant_frozen=not bf16, **serve)
         if not bf16:
             r["serve_fault"] = family_serve(
                 "phase19", gen, c, model, f"(c) {AUDIO_ARCH} {dtype}",
@@ -6267,6 +6550,14 @@ def main(argv=None) -> int:
         if count == 0:
             raise AssertionError(f"the LM path never took the {route} "
                                  "route of swa_attention")
+    log("[main] compiled decode (phases 13, 17-20), each serving check's "
+        "eager run against its graphed leg (a captured decode step "
+        "replayed): " + json.dumps(GRAPH_LEGS))
+    if len(GRAPH_LEGS) != GRAPH_LEG_COUNT or not all(
+            leg["same"] for leg in GRAPH_LEGS):
+        raise AssertionError(f"compiled decode: {len(GRAPH_LEGS)} graphed "
+                             f"legs (want {GRAPH_LEG_COUNT}), equal to eager "
+                             f"{[leg['same'] for leg in GRAPH_LEGS]}")
     zero_counts()                            # main path: phase 21
     r21 = phase21(gen, rate, args.seed)
     log(f"[main] swa_attention launches on the training path (phase 21: "

@@ -13,12 +13,16 @@ Round mode (:func:`generate`) runs on the port's :class:`~repro_torch.core.
 pattern.LoopOfStencilReduce` in step mode on ``backend="torch"`` (the twin
 of the reference's default ``"jnp"``): a host loop whose body is the decode
 step on the card, with one host read per step (the done flag).  The KV
-caches stay on the device and are written in place.
+caches stay on the device and are written in place.  :func:`generate_jit`
+is the compiled twin (the reference's one on-device ``while_loop``): the
+prefill runs eagerly, then one decode step captured as a CUDA graph
+(:mod:`~repro_torch.serve.graphs`) is replayed, the host reading the loop
+condition once every ``CHECK_EVERY`` replays.
 
 :class:`ContinuousEngine` is continuous batching: persistent KV-cache slots,
 ragged admission and per-sequence refill, bounded decode segments on the
-port's :func:`~repro_torch.core.pattern.segmented_while`, deadlines,
-snapshot/resume and the chained dispatcher.
+port's :func:`~repro_torch.core.pattern.segmented_while` whose body replays
+the captured step, deadlines, snapshot/resume and the chained dispatcher.
 
 Sampled decode (``temperature > 0``).  ``jax.random`` keys cannot be
 reproduced in torch, so the port draws its own randomness: the Gumbel-max
@@ -49,6 +53,7 @@ from ..configs.base import ArchConfig
 from ..core.pattern import LoopOfStencilReduce, segmented_while
 from ..device import to_device
 from ..models import transformer as T
+from .graphs import StepGraph
 
 
 @dataclasses.dataclass
@@ -107,26 +112,53 @@ def sample_tokens(logits, temperature: float, seed: int, stream, step):
 @torch.no_grad()
 def prefill(cfg: ArchConfig, params, tokens, *, max_seq: int,
             cache_dtype=torch.bfloat16, patch_embeds=None, enc_out=None,
-            cross_caches=None, device=None):
+            cross_caches=None, quant: bool = False, device=None):
     """Run the prompt (after the vision stub's patches, when given) through
-    the model, returning (last_logits, caches)."""
+    the model, returning (last_logits, caches).  ``quant``: the int8 KV
+    cache (:func:`~repro_torch.models.transformer.init_cache`)."""
     dev = T.check_device(params, device)
     tokens = to_device(tokens, dev)
-    if patch_embeds is not None:
-        patch_embeds = to_device(patch_embeds, dev)
-    caches = T.init_cache(cfg, tokens.shape[0], max_seq, cache_dtype,
+    caches = T.init_cache(cfg, tokens.shape[0], max_seq, cache_dtype, quant,
                           device=dev)
-    logits, caches = T.step_with_cache(
+    return _prefill_into(cfg, params, caches, tokens, patch_embeds, enc_out,
+                         cross_caches), caches
+
+
+def _prefill_into(cfg, params, caches, tokens, patch_embeds, enc_out,
+                  cross_caches):
+    """The prompt's forward from position 0 into ``caches`` (written in
+    place); returns the last row's logits."""
+    if patch_embeds is not None:
+        patch_embeds = to_device(patch_embeds, tokens.device)
+    logits, _ = T.step_with_cache(
         cfg, params, caches, tokens, 0, patch_embeds=patch_embeds,
         enc_out=enc_out, cross_caches=cross_caches)
-    return logits[:, -1], caches
+    return logits[:, -1]
+
+
+def _budget_vector(budgets, B: int, max_new: int, dev) -> torch.Tensor:
+    return (torch.full((B,), max_new, dtype=torch.int32, device=dev)
+            if budgets is None else
+            torch.as_tensor(budgets, dtype=torch.int32, device=dev))
+
+
+def _lengths(out, bud, gcfg: GenerateConfig):
+    """Each row's length: up to and including its first EOS (the whole row
+    without one), clipped to its budget (post-done positions are eos
+    pads)."""
+    is_eos = out == gcfg.eos_id
+    lengths = torch.where(
+        is_eos.any(dim=1), is_eos.int().argmax(dim=1) + 1,
+        torch.full((out.shape[0],), gcfg.max_new_tokens, dtype=torch.int64,
+                   device=out.device))
+    return torch.minimum(lengths, bud.long()).to(torch.int32)
 
 
 @torch.no_grad()
 def generate(cfg: ArchConfig, params, prompt, gcfg: GenerateConfig, *,
              max_seq: Optional[int] = None, cache_dtype=torch.bfloat16,
              enc_out=None, cross_caches=None, patch_embeds=None,
-             budgets=None, device=None):
+             budgets=None, quant: bool = False, device=None):
     """Batched generation, greedy or sampled (see the module docstring).
     Returns (tokens (B, max_new), lengths, iters), as the reference's
     ``generate``.
@@ -139,7 +171,13 @@ def generate(cfg: ArchConfig, params, prompt, gcfg: GenerateConfig, *,
     int vector of per-sequence ``max_new_tokens`` (each in [1,
     gcfg.max_new_tokens]): the done-mask retires a sequence at its own
     budget; ``lengths`` is clipped to it (post-done positions are
-    eos-padded)."""
+    eos-padded).  ``quant``: the int8 KV cache.
+
+    The step counter ``t`` is a 0-d device tensor carried in the loop: the
+    last token's column, the position ``S0 + P + t - 1`` and the sampling
+    step are device tensors, as under the reference's jit, so the step
+    itself reads nothing back; the loop reads the done flag once a step
+    (:func:`generate_jit` replays a captured step instead)."""
     dev = T.check_device(params, device)
     prompt = to_device(prompt, dev)
     B, S0 = prompt.shape
@@ -150,24 +188,24 @@ def generate(cfg: ArchConfig, params, prompt, gcfg: GenerateConfig, *,
     last_logits, caches = prefill(cfg, params, prompt, max_seq=max_seq,
                                   cache_dtype=cache_dtype,
                                   patch_embeds=patch_embeds, enc_out=enc_out,
-                                  cross_caches=cross_caches, device=dev)
-    bud = (torch.full((B,), max_new, dtype=torch.int32, device=dev)
-           if budgets is None else
-           torch.as_tensor(budgets, dtype=torch.int32, device=dev))
+                                  cross_caches=cross_caches, quant=quant,
+                                  device=dev)
+    bud = _budget_vector(budgets, B, max_new, dev)
     rows = torch.arange(B, device=dev)
 
     def sample(logits, t):
         return sample_tokens(logits, gcfg.temperature, gcfg.seed, rows,
-                             torch.full_like(rows, t))
+                             t.expand(B))
 
-    first = sample(last_logits, 0)                            # (B,)
+    first = sample(last_logits, torch.zeros((), dtype=torch.int32,
+                                            device=dev))           # (B,)
     out0 = torch.zeros((B, max_new), dtype=torch.int32, device=dev)
     out0[:, 0] = first
     done0 = (first == gcfg.eos_id) | (bud <= 1)
 
     def step_fn(carry):
         caches, out, done, t = carry
-        tok = out[:, t - 1:t]
+        tok = out.gather(1, (t.long() - 1).expand(B, 1))
         logits, caches = T.decode_step(cfg, params, caches, tok,
                                        S0 + P + t - 1, enc_out=enc_out,
                                        cross_caches=cross_caches)
@@ -176,7 +214,7 @@ def generate(cfg: ArchConfig, params, prompt, gcfg: GenerateConfig, *,
         if max_new > 1:
             # cap == 1: the repeat/until still runs its one mandatory body
             # step, whose write (t=1) would land past the only column
-            out[:, t] = nxt.to(out.dtype)
+            out.scatter_(1, t.long().expand(B, 1), nxt.to(out.dtype)[:, None])
         done = done | (nxt == gcfg.eos_id) | (t + 1 >= bud)
         return (caches, out, done, t + 1)
 
@@ -188,14 +226,174 @@ def generate(cfg: ArchConfig, params, prompt, gcfg: GenerateConfig, *,
         state_update=lambda s, a, it: s + 1,
         max_iters=max_new, backend="torch", device=dev)
 
-    res = loop.run((caches, out0, done0, 1))
-    _, out, done, _ = res.a
-    is_eos = out == gcfg.eos_id
-    lengths = torch.where(
-        is_eos.any(dim=1), is_eos.int().argmax(dim=1) + 1,
-        torch.full((B,), max_new, dtype=torch.int64, device=dev))
-    lengths = torch.minimum(lengths, bud.long()).to(torch.int32)
-    return out, lengths, res.iters
+    res = loop.run((caches, out0, done0,
+                    torch.ones((), dtype=torch.int32, device=dev)))
+    _, out, _, _ = res.a
+    return out, _lengths(out, bud, gcfg), res.iters
+
+
+# ---------------------------------------------------------------------------
+# Compiled generation — a captured decode step, replayed.
+# ---------------------------------------------------------------------------
+
+CHECK_EVERY = 8     # replays between two host reads of the loop condition
+
+
+def _reset_caches(caches):
+    """Every leaf back to :func:`~repro_torch.models.transformer.
+    init_cache`'s value, in place: zeros, and -1 (empty) in a ring's
+    ``pos``."""
+    for c in caches:
+        for key, leaf in c.items():
+            leaf.fill_(-1 if key == "pos" else 0)
+
+
+class _Compiled:
+    """:func:`generate_jit`'s static state for one key: the caches, the
+    carry (out, done, t), the budgets, copies of the read-only encoder
+    output and cross caches, and the captured step over them."""
+
+    def __init__(self, cfg, params, gcfg, dev, *, B, S0, max_seq,
+                 cache_dtype, quant, enc_out, cross_caches):
+        P = cfg.vision_patches or 0
+        max_new, eos = gcfg.max_new_tokens, gcfg.eos_id
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.params = params        # keeps the key's identity valid
+        self.max_new = max_new
+        self.caches = T.init_cache(cfg, B, max_seq, cache_dtype, quant,
+                                   device=dev)
+        self.out = torch.zeros((B, max_new), **i32)
+        self.done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self.t = torch.ones((), **i32)
+        self.bud = torch.full((B,), max_new, **i32)
+        self.rows = torch.arange(B, device=dev)
+        self.enc = None if enc_out is None else torch.empty_like(enc_out)
+        self.cross = None if cross_caches is None else [
+            None if c is None else {k: torch.empty_like(v)
+                                    for k, v in c.items()}
+            for c in cross_caches]
+        last = max(max_new - 1, 1)
+        # the step closes over the buffers, not over self: no cycle keeps
+        # a dropped state's caches and parameters alive
+        caches, out, done, t, bud, rows = (self.caches, self.out, self.done,
+                                           self.t, self.bud, self.rows)
+        enc, cross = self.enc, self.cross
+
+        def step():
+            """One decode step gated on ``running``: past the stop it
+            writes neither out, done nor t, and its own counter stays at
+            the last real step's (so its cache write stays in range)."""
+            run = (t == 1) | (~done.all() & (t < max_new))
+            ti = t.clamp(max=last)
+            tok = out.gather(1, (ti.long() - 1).expand(B, 1))
+            logits, _ = T.decode_step(cfg, params, caches, tok,
+                                      S0 + P + ti - 1, enc_out=enc,
+                                      cross_caches=cross)
+            nxt = sample_tokens(logits[:, 0], gcfg.temperature, gcfg.seed,
+                                rows, ti.expand(B)).to(torch.int32)
+            nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
+            if max_new > 1:
+                col = ti.long().expand(B, 1)
+                out.scatter_(1, col, torch.where(
+                    run, nxt, out.gather(1, col)[:, 0])[:, None])
+            done.copy_(torch.where(
+                run, done | (nxt == eos) | (t + 1 >= bud), done))
+            t.add_(run.to(t.dtype))
+
+        self.graph = StepGraph(step, dev)
+
+    def running(self):
+        return ~self.done.all() & (self.t < self.max_new)
+
+
+class GenerateJit:
+    """The callable :func:`generate_jit` returns.  ``compiled`` maps each
+    key (the parameters' identity, B, S0, ``max_seq``, ``cache_dtype``,
+    ``quant``, the temperature and the encoder output's shape) to its
+    static state; ``stats`` counts calls, decode steps, graph replays,
+    captures and host reads of the loop condition."""
+
+    def __init__(self, cfg: ArchConfig, gcfg: GenerateConfig, kw: dict):
+        self.cfg, self.gcfg, self.kw = cfg, gcfg, kw
+        self.compiled: dict = {}
+        self.stats = {"calls": 0, "steps": 0, "replays": 0, "captures": 0,
+                      "checks": 0}
+
+    @torch.no_grad()
+    def __call__(self, params, prompt, **call_kw):
+        kw = {**self.kw, **call_kw}
+        cfg, gcfg = self.cfg, self.gcfg
+        dev = T.check_device(params, kw.get("device"))
+        prompt = to_device(prompt, dev)
+        B, S0 = prompt.shape
+        P = cfg.vision_patches or 0
+        max_new = gcfg.max_new_tokens
+        max_seq = kw.get("max_seq") or (S0 + P + max_new)
+        cache_dtype = kw.get("cache_dtype", torch.bfloat16)
+        quant = kw.get("quant", False)
+        enc_out, cross = kw.get("enc_out"), kw.get("cross_caches")
+        key = (id(params), B, S0, max_seq, cache_dtype, quant,
+               gcfg.temperature,
+               None if enc_out is None else tuple(enc_out.shape),
+               cross is None)
+        st = self.compiled.get(key)
+        if st is None:
+            st = self.compiled[key] = _Compiled(
+                cfg, params, gcfg, dev, B=B, S0=S0, max_seq=max_seq,
+                cache_dtype=cache_dtype, quant=quant, enc_out=enc_out,
+                cross_caches=cross)
+        # the eager prefill, into the static buffers
+        if st.enc is not None:
+            st.enc.copy_(enc_out)
+        for c, s in zip(cross or (), st.cross or ()):
+            for k in s or ():
+                s[k].copy_(c[k])
+        _reset_caches(st.caches)
+        last_logits = _prefill_into(cfg, params, st.caches, prompt,
+                                    kw.get("patch_embeds"), st.enc, st.cross)
+        st.bud.copy_(_budget_vector(kw.get("budgets"), B, max_new, dev))
+        first = sample_tokens(last_logits, gcfg.temperature, gcfg.seed,
+                              st.rows, torch.zeros_like(st.rows))
+        st.out.zero_()
+        st.out[:, 0] = first
+        st.done.copy_((first == gcfg.eos_id) | (st.bud <= 1))
+        st.t.fill_(1)
+        # the decode loop: CHECK_EVERY replays, then one host read
+        g = st.graph
+        calls, replays, captures = g.calls, g.replays, g.captures
+        while True:
+            for _ in range(CHECK_EVERY):
+                g()
+            self.stats["checks"] += 1
+            if not bool(st.running()):
+                break
+        self.stats["calls"] += 1
+        self.stats["steps"] += g.calls - calls
+        self.stats["replays"] += g.replays - replays
+        self.stats["captures"] += g.captures - captures
+        out = st.out.clone()
+        return out, _lengths(out, st.bud, gcfg), st.t - 1
+
+
+def generate_jit(cfg: ArchConfig, gcfg: GenerateConfig, **kw) -> GenerateJit:
+    """Compiled :func:`generate` (twin of the reference's ``generate_jit``):
+    returns a callable ``fn(params, prompt, **kw)`` giving (tokens,
+    lengths, iters) exactly as :func:`generate` does; keywords bound here
+    and keywords of the call both go to it.
+
+    The prefill runs eagerly, one forward of the prompt.  The decode loop
+    replays one captured step (:class:`~repro_torch.serve.graphs.
+    StepGraph`) over static buffers, gated on the device condition
+    ``running = (t == 1) | (~all(done) & (t < max_new))``, so steps past the
+    stop change no returned value; the host reads the condition once every
+    ``CHECK_EVERY`` replays.  ``iters`` is the device counter, not the
+    number of replays.  The graph is keyed as jit's cache is (B, S0,
+    ``max_seq``, ``cache_dtype``, ``quant``, temperature, for one ``cfg``
+    and parameters) and captured at the first call of a key; its static
+    buffers (the caches among them) live as long as the callable.  The
+    parameters are captured by address (see :mod:`~repro_torch.serve.
+    graphs`).  On ``device="cpu"`` the same gated step runs eagerly."""
+    return GenerateJit(cfg, gcfg, kw)
 
 
 # ---------------------------------------------------------------------------
@@ -235,15 +433,6 @@ def _arch_has_ssm(cfg: ArchConfig) -> bool:
     return any(s.kind == "ssm" for s in T.layer_specs(cfg))
 
 
-def _row(x: torch.Tensor, i: int, value) -> torch.Tensor:
-    """``x`` with row ``i`` set to ``value``, as a new tensor: the carry is
-    never written in place, so a chained drain's captures keep the values
-    of the segment that produced them."""
-    x = x.clone()
-    x[i] = value
-    return x
-
-
 class ContinuousEngine:
     """Continuous-batching decode: persistent KV-cache slots with
     per-sequence refill (twin of :class:`repro.serve.engine.
@@ -270,15 +459,22 @@ class ContinuousEngine:
     ["idle_slot_steps"]`` counts slot-steps burned on retired or
     done-masked slots.
 
-    Nothing is compiled in eager torch: ``stats["segment_traces"]``,
-    ``["chain_traces"]`` and ``["prefill_traces"]`` count the slot-pool
-    bindings each entry point served (the synchronous and the chained
-    segment, the synchronous and the chained admission: one each per
-    binding, at its first call), which is where the reference's jit
-    traces.  One binding serves the whole stream.
+    The segment's body is one decode step over the bound buffers, written
+    in place: a captured CUDA graph replayed once a body step on the card
+    (:class:`~repro_torch.serve.graphs.StepGraph`, the twin of the
+    reference's jitted segment), the same step run eagerly on the CPU.  A
+    binding (and :meth:`restore`) drops the graph; it is captured at the
+    first segment.  ``stats["segment_traces"]``, ``["chain_traces"]`` and
+    ``["prefill_traces"]`` count the slot-pool bindings each entry point
+    served (the synchronous and the chained segment, the synchronous and
+    the chained admission: one each per binding, at its first call), which
+    is where the reference's jit traces.  One binding serves the whole
+    stream.
 
-    The carry (out, done, t, budget, keys, plens) is small and replaced,
-    never written in place; the KV pool is written in place.  Constraints
+    The KV pool and the carry (out, done, t, budget, keys, plens) are the
+    bound buffers, written in place by the step, the admissions and
+    restores between segments; the chained dispatcher copies the rows each
+    in-flight segment leaves for its drain.  Constraints
     as the reference's: per-request ``max_new_tokens`` is capped by
     ``gcfg.max_new_tokens`` (the slot width); absolute position
     embeddings, encoders and vision prefixes are refused; ragged
@@ -330,7 +526,17 @@ class ContinuousEngine:
         self._budget = torch.ones((B,), **i32)
         self._keys = torch.zeros((B, 2), dtype=torch.int64, device=dev)
         self._plen = torch.full((B,), prompt_len, **i32)
+        self._step_key = torch.tensor([0, 1], dtype=torch.int64, device=dev)
+        # through a weak reference, so that no cycle keeps a dropped
+        # engine's pool alive until the next collection
+        eng = weakref.proxy(self)
+        self._step = self._step_runner(lambda: eng._decode_step())
         self._bound = True
+
+    def _step_runner(self, step):
+        """The segment's body step: ``step`` captured and replayed on the
+        card, eager on the CPU."""
+        return StepGraph(step, self.device)
 
     def _serve_entry(self, name: str, *counters: str):
         """Count an entry point's first call on this binding (see the
@@ -376,16 +582,14 @@ class ContinuousEngine:
         first = self._sample(last, key)[0].to(torch.int32)
         self._write_slot(caches, idx, fresh)
         del logits, fresh
-        row = torch.zeros_like(out[0])
-        row[0] = first
-        out = _row(out, idx, row)
-        done = _row(done, idx, (first == self.gcfg.eos_id) | (bud <= 1))
-        t = _row(t, idx, 1)
-        budget = _row(budget, idx, bud)
-        keys = _row(keys, idx, key[0] + torch.tensor(
-            [0, 1], device=self.device))
-        plens = _row(plens, idx, plen)
-        return caches, out, done, t, budget, keys, plens
+        out[idx] = 0
+        out[idx, 0] = first
+        done[idx] = (first == self.gcfg.eos_id) | (bud <= 1)
+        t[idx] = 1
+        budget[idx] = bud
+        keys[idx] = key[0] + self._step_key
+        plens[idx] = plen
+        return carry
 
     # -- slot snapshot / restore (preemption recovery) ---------------------
     def _snap_slot(self, caches, idx: int) -> list:
@@ -405,15 +609,15 @@ class ContinuousEngine:
         self._write_slot(caches, idx, [
             {key: torch.as_tensor(v).to(dev) for key, v in c.items()}
             for c in e["caches"]])
-        out = _row(out, idx, torch.as_tensor(
-            np.asarray(e["out"]), dtype=out.dtype).to(dev))
-        done = _row(done, idx, bool(e["done"]))
-        t = _row(t, idx, int(e["t"]))
-        budget = _row(budget, idx, int(e["budget"]))
-        keys = _row(keys, idx, torch.as_tensor(
-            np.asarray(e["key"]), dtype=keys.dtype).to(dev))
-        plens = _row(plens, idx, int(e["plen"]))
-        return caches, out, done, t, budget, keys, plens
+        out[idx] = torch.as_tensor(np.asarray(e["out"]),
+                                   dtype=out.dtype).to(dev)
+        done[idx] = bool(e["done"])
+        t[idx] = int(e["t"])
+        budget[idx] = int(e["budget"])
+        keys[idx] = torch.as_tensor(np.asarray(e["key"]),
+                                    dtype=keys.dtype).to(dev)
+        plens[idx] = int(e["plen"])
+        return carry
 
     def snapshot(self) -> dict:
         """The in-flight serve state as one logical tree: every occupied
@@ -452,41 +656,45 @@ class ContinuousEngine:
             raise ValueError(
                 "snapshot occupants carry no per-layer 'caches' (a tree "
                 "written by another package's engine)")
+        if self._bound:
+            self._step.reset()
         self._resume_state = state
         return self
 
     # -- one bounded decode segment ----------------------------------------
+    def _decode_step(self):
+        """One decode step of every slot over the bound buffers, in place.
+        Slot b reads its last token at out[b, t_b - 1] and writes the cache
+        at plen_b + t_b - 1; a done slot keeps its out, t and keys rows."""
+        caches, out, done, t = self._caches, self._out, self._done, self._t
+        keys, cap, eos = self._keys, self.gcfg.max_new_tokens, self.gcfg.eos_id
+        live = ~done
+        tok = out.gather(1, (t.long() - 1)[:, None])
+        pos = (self._plen + t - 1)[:, None]               # (B, 1)
+        logits, _ = T.decode_step(self.cfg, self.params, caches, tok, pos)
+        nxt = self._sample(logits[:, 0], keys).to(torch.int32)
+        if self.gcfg.temperature > 0:
+            keys.copy_(torch.where(live[:, None], keys + self._step_key,
+                                   keys))
+        nxt = torch.where(live, nxt, torch.full_like(nxt, eos))
+        tw = t.clamp(max=cap - 1).long()[:, None]
+        out.scatter_(1, tw, torch.where(
+            live, nxt, out.gather(1, tw)[:, 0])[:, None])
+        t_new = torch.where(live, t + 1, t)
+        done.copy_(done | (live & ((nxt == eos) | (t_new >= self._budget))))
+        t.copy_(t_new)
+
     def _segment_core(self, carry):
         """Advance every live slot up to ``segment`` decode steps, returning
-        as soon as any sequence newly finishes (EOS or its own budget).
-        Slot b reads its last token at out[b, t_b - 1] and writes the cache
-        at plen_b + t_b - 1.  Returns (carry, steps)."""
-        caches, out, done, t, budget, keys, plens = carry
-        cap, eos = self.gcfg.max_new_tokens, self.gcfg.eos_id
-        step_key = torch.tensor([0, 1], device=self.device)
-
+        as soon as any sequence newly finishes (EOS or its own budget): one
+        call of the bound step a body step, over the bound buffers that
+        ``carry`` names.  Returns (carry, steps)."""
         def body(c):
-            caches, out, done, t, keys = c
-            live = ~done
-            tok = out.gather(1, (t.long() - 1)[:, None])
-            pos = (plens + t - 1)[:, None]                # (B, 1)
-            logits, caches = T.decode_step(self.cfg, self.params, caches,
-                                           tok, pos)
-            nxt = self._sample(logits[:, 0], keys).to(torch.int32)
-            if self.gcfg.temperature > 0:
-                keys = torch.where(live[:, None], keys + step_key, keys)
-            nxt = torch.where(live, nxt, torch.full_like(nxt, eos))
-            tw = t.clamp(max=cap - 1).long()[:, None]
-            out = out.scatter(1, tw, torch.where(
-                live, nxt, out.gather(1, tw)[:, 0])[:, None])
-            t = torch.where(live, t + 1, t)
-            done = done | (live & ((nxt == eos) | (t >= budget)))
-            return caches, out, done, t, keys
+            self._step()
+            return c
 
-        (caches, out, done, t, keys), steps = segmented_while(
-            body, (caches, out, done, t, keys), finished=lambda c: c[2],
-            segment=self.segment)
-        return (caches, out, done, t, budget, keys, plens), steps
+        return segmented_while(body, carry, finished=lambda c: c[2].clone(),
+                               segment=self.segment)
 
     # -- the dispatcher ------------------------------------------------------
     @torch.no_grad()
@@ -520,8 +728,7 @@ class ContinuousEngine:
         carry and lag one in-flight segment (counted in
         ``idle_slot_steps``).  Emission order, exactly-once and the tokens
         match the synchronous path.  The port's segment reads its done
-        flags on the host each step, so the lag overlaps little yet
-        (ROADMAP.md).
+        flags on the host each step, so the lag overlaps little yet.
         """
         from ..resilience.recovery import Journal, load_snapshot, \
             save_snapshot
@@ -689,8 +896,7 @@ class ContinuousEngine:
             return True
 
         def retire(slot):
-            nonlocal carry
-            carry = carry[:2] + (_row(carry[2], slot, True),) + carry[3:]
+            carry[2][slot] = True
 
         # the capture outlives this call on the engine: it reaches the
         # engine through a weak reference, so that no cycle keeps a dropped
@@ -828,8 +1034,11 @@ class ContinuousEngine:
                 self.stats["segments"] += 1
                 if on_segment is not None:
                     on_segment(self.stats["segments"])
+                # the drain reads this segment's rows after the next
+                # segment has written the buffers: keep copies
                 _, out, done, t = carry[:4]
-                inflight.append((ndisp, done, t, out, steps))
+                inflight.append((ndisp, done.clone(), t.clone(), out.clone(),
+                                 steps))
 
             def seated(slot, ok):
                 if ok:

@@ -1144,6 +1144,112 @@ def test_cuda_continuous_engine_matches_solo_generate(cuda_f32):
 
 
 # ---------------------------------------------------------------------------
+# compiled decode: a captured decode step, replayed
+# ---------------------------------------------------------------------------
+
+
+def serve_extras(cfg, model, B, device):
+    """The keywords a reduced family's generate call takes on the card."""
+    from repro_torch.models import transformer as TT
+    extras = family_extras(cfg, B, device, seed=2)
+    if cfg.is_encoder_decoder:
+        enc = TT.encode(cfg, model, extras["frames"])
+        return dict(enc_out=enc,
+                    cross_caches=TT.prefill_cross_caches(cfg, model, enc))
+    return extras if cfg.vision_patches else {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,quant", [
+    ("gemma2-9b", False), ("gemma2-9b", True), ("deepseek-moe-16b", False),
+    ("mamba2-130m", False), ("jamba-v0.1-52b", False),
+    ("whisper-base", False), ("phi-3-vision-4.2b", False)])
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_cuda_generate_jit_equals_generate(cuda_f32, arch, quant,
+                                           temperature):
+    """The graphed ``generate_jit`` against the eager ``generate`` on the
+    card (float32, reduced widths; gemma2 also on the int8 cache): tokens,
+    lengths and iters equal, over two calls of one captured graph with
+    other budgets."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as TT
+    from repro_torch.serve import GenerateConfig, generate, generate_jit
+    cfg = get_reduced(arch)
+    model = TT.init_params(cfg, seed=1, device=cuda_f32)
+    kw = serve_extras(cfg, model, 3, cuda_f32)
+    g = GenerateConfig(max_new_tokens=19, temperature=temperature, seed=3)
+    run = generate_jit(cfg, g, cache_dtype=torch.float32, quant=quant)
+    rng = np.random.default_rng(4)
+    for budgets in (None, [19, 5, 11]):
+        prompt = rng.integers(2, cfg.vocab_size, (3, 10))
+        want = generate(cfg, model, prompt, g, cache_dtype=torch.float32,
+                        budgets=budgets, quant=quant, **kw)
+        got = run(model, prompt, budgets=budgets, **kw)
+        for w, x in zip(want, got):
+            assert torch.equal(w, x)
+    assert run.stats["captures"] == 1 and run.stats["replays"] > 0
+    assert len(run.compiled) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_continuous_engine_equals_generate(cuda_f32):
+    """The graphed ``ContinuousEngine`` (sync and chained) on the card: each
+    request's tokens equal its solo eager ``generate``, as sets per rid;
+    the body step was captured once and replayed."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as TT
+    from repro_torch.serve import (ContinuousEngine, GenerateConfig, Request,
+                                   generate)
+    cfg = get_reduced("gemma2-9b")
+    model = TT.init_params(cfg, seed=2, device=cuda_f32)
+    rng = np.random.default_rng(35)
+    reqs = [Request(rid=i, prompt=np.asarray(rng.integers(
+        2, cfg.vocab_size, L), np.int32), max_new_tokens=b)
+        for i, (L, b) in enumerate(zip([4, 12, 6, 9, 14, 3],
+                                       [9, 7, 3, 9, 4, 6]))]
+    want = {}
+    for r in reqs:
+        solo, L, _ = generate(cfg, model, r.prompt[None], GenerateConfig(
+            max_new_tokens=r.max_new_tokens), cache_dtype=torch.float32)
+        want[r.rid] = solo[0, :int(L[0])].tolist()
+    for chained in (False, True):
+        got = {}
+        eng = ContinuousEngine(cfg, model, GenerateConfig(max_new_tokens=9),
+                               slots=3, cache_dtype=torch.float32, segment=4)
+        eng.run(reqs, lambda rid, t, s: got.__setitem__(rid, t.tolist()),
+                chained=chained)
+        assert got == want
+        assert eng._step.captures == 1 and eng._step.replays > 0
+
+
+@pytest.mark.cuda
+def test_cuda_a_host_sync_in_the_step_makes_the_capture_raise(cuda_f32,
+                                                              monkeypatch):
+    """A decode step that reads a value back to the host cannot be
+    captured: ``generate_jit`` raises RuntimeError, with no eager
+    fallback."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as TT
+    from repro_torch.serve import GenerateConfig, generate_jit
+    cfg = get_reduced("gemma2-9b")
+    model = TT.init_params(cfg, seed=1, device=cuda_f32)
+    real = TT.decode_step
+
+    def syncing(*a, **kw):
+        logits, caches = real(*a, **kw)
+        if float(logits.sum()) != float(logits.sum()):   # a host read
+            raise AssertionError("non-finite logits")
+        return logits, caches
+    monkeypatch.setattr(TT, "decode_step", syncing)
+    run = generate_jit(cfg, GenerateConfig(max_new_tokens=6),
+                       cache_dtype=torch.float32)
+    prompt = np.random.default_rng(5).integers(2, cfg.vocab_size, (2, 8))
+    with pytest.raises(RuntimeError, match="decode step"):
+        run(model, prompt)
+    assert run.stats["replays"] == 0
+
+
+# ---------------------------------------------------------------------------
 # training: AdamW and int8 compression on the card
 # ---------------------------------------------------------------------------
 
