@@ -3457,7 +3457,11 @@ def serve_run(engine, reqs, **run_kw):
 
 
 def without_wall(stats) -> dict:
-    return {k: v for k, v in stats.items() if k != "recovery_seconds"}
+    """The counters of a run, without its wall clock, its spans (``span_*``,
+    ``idle_ms.*``: timed, and on only under a profiler) and its graph
+    counters (``graph_*``: the port's own, as an eager step has none)."""
+    return {k: v for k, v in stats.items() if k != "recovery_seconds"
+            and not k.startswith(("span_", "idle_ms.", "graph_"))}
 
 
 def teacher_forced(cfg, model, reqs, seq):

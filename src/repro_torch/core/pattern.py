@@ -34,6 +34,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from .. import obs
 from ..device import KERNEL_BACKENDS, resolve_backend, resolve_device, \
     to_device
 from ..sharding.specs import normalise_device
@@ -74,7 +75,8 @@ def segmented_while(body, carry, *, finished, segment, early_exit=True,
     steps = [0] * P
     if not early_exit:
         for _ in range(segment):
-            carry = call(carry, [True] * P)
+            with obs.span("loop.step", device=True):
+                carry = call(carry, [True] * P)
         steps = [segment] * P
     else:
         fin0 = fin = finished(carry)
@@ -83,14 +85,16 @@ def segmented_while(body, carry, *, finished, segment, early_exit=True,
             cand = [a and n < segment for a, n in zip(active, steps)]
             if not any(cand):
                 break
-            go = ((~fin).reshape(P, -1).any(1)
-                  & ~(fin & ~fin0).reshape(P, -1).any(1)).tolist()
+            with obs.span("loop.exit_read"):
+                go = ((~fin).reshape(P, -1).any(1)
+                      & ~(fin & ~fin0).reshape(P, -1).any(1)).tolist()
             active = [c and g for c, g in zip(cand, go)]
             if not any(active):
                 break
-            carry = call(carry, active)
+            with obs.span("loop.step", device=True):
+                carry = call(carry, active)
+                fin = finished(carry)
             steps = [n + a for n, a in zip(steps, active)]
-            fin = finished(carry)
     return carry, (steps if shards is not None else steps[0])
 
 

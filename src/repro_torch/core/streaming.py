@@ -51,6 +51,7 @@ from typing import Any, Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import resolve_backend, resolve_device, to_device
 from ..sharding.specs import (axis_devices, check_even, gather_grid,
                               local_slot, scatter_grid, slice_partition)
@@ -58,6 +59,13 @@ from .executor import _on, local_extents
 from .frames import DEFAULT_BLOCK, alloc_stage_ring, stage_ring_write, unframe
 from .pattern import LoopResult, segment_reads
 from .reduce import HEALTH_CONVERGED, HEALTH_DIVERGED, HEALTH_POISONED
+
+# the engine's spans (repro_torch.obs); the device ones record CUDA events
+FARM_SPANS = ("farm.stage", "farm.check", "farm.upload", "farm.prep",
+              "farm.dispatch", "farm.drain", "farm.emit", "farm.payload",
+              "farm.sink", "loop.step", "loop.exit_read")
+FARM_DEVICE_SPANS = ("farm.upload", "farm.prep", "farm.dispatch",
+                     "farm.payload", "loop.step")
 
 
 class NonFiniteItemError(ValueError):
@@ -741,7 +749,9 @@ class FarmEngine:
                       "rejected": 0, "quarantined_slots": 0,
                       "sink_errors": 0, "snapshots": 0,
                       "replayed_items": 0, "recovered_occupants": 0,
-                      "recovery_seconds": 0.0, "host_reads": 0}
+                      "recovery_seconds": 0.0, "host_reads": 0,
+                      **obs.stats_keys(FARM_SPANS, device=FARM_DEVICE_SPANS,
+                                       other="farm.other")}
         self._resume_state = None       # staged by restore()
         self._rt_capture = None         # live snapshot closure, set by
                                         # run_continuous for snapshot()
@@ -763,7 +773,7 @@ class FarmEngine:
         item = _as_item(item)
         self._item_avals = tuple((tuple(leaf.shape), leaf.dtype)
                                  for leaf in _item_leaves(item))
-        a0, envs = self._prep1(to_device(item, dev))
+        a0, envs = self._prep(self._upload(item))
         if a0.ndim != 2:
             raise ValueError(f"stream items must be 2-D grids; prep "
                              f"produced {tuple(a0.shape)}")
@@ -800,10 +810,20 @@ class FarmEngine:
                 "ring": tuple(x.data_ptr() for ring, envs in
                               self._rings.values() for x in (ring, *envs))}
 
+    def _upload(self, item):
+        """A stream item's leaves on the engine's device."""
+        with obs.span("farm.upload", device=self.device):
+            return to_device(item, self.device)
+
+    def _prep(self, item):
+        """``prep`` on one item (its leaves on the device)."""
+        with obs.span("farm.prep", device=self.device):
+            return self._prep1(item)
+
     def _prep_items(self, items: list):
         """``prep`` on each item (leaves already on the device), stacked:
         ``(a0s, env stacks)``."""
-        preps = [self._prep1(it) for it in items]
+        preps = [self._prep(it) for it in items]
         return (torch.stack([p[0] for p in preps]),
                 tuple(torch.stack([p[1][j] for p in preps])
                       for j in range(len(preps[0][1]))))
@@ -834,6 +854,7 @@ class FarmEngine:
             return None
         return lambda run: run.any().expand_as(run)
 
+    @obs.collected("farm.other")
     def round(self, items, count: Optional[int] = None):
         """Push one stacked (≤ lanes, ...) batch through the slots.
 
@@ -887,8 +908,7 @@ class FarmEngine:
             sum(_nbytes(leaf) // B for leaf in leaves) * count
         self.stats["rounds"] += 1
         self.stats["items"] += count
-        dev_items = [to_device(_item_at(items, i), self.device)
-                     for i in range(count)]
+        dev_items = [self._upload(_item_at(items, i)) for i in range(count)]
         outs, red, iters, hw = self._round_impl(
             self._frames, self._env_frames, dev_items, count)
         self._waste_buf.append((iters, hw, count))
@@ -960,9 +980,10 @@ class FarmEngine:
         the device) and re-arm its carry: ``prep``, then O(interior)
         writes in place.  The health word re-arms to 0: a slot's faults do
         not follow it onto the next occupant."""
-        a0, envs = self._prep1(item)
-        return self._slot_write(frames, env_frames, r, it, done, hw, idx,
-                                a0, envs, self._loop._id, 0, 0)
+        with obs.span("farm.prep", device=self.device):
+            a0, envs = self._prep1(item)
+            return self._slot_write(frames, env_frames, r, it, done, hw, idx,
+                                    a0, envs, self._loop._id, 0, 0)
 
     def _restore_impl(self, frames, env_frames, r, it, done, hw, idx,
                       item, a_mid, rv, iv, hv):
@@ -973,9 +994,10 @@ class FarmEngine:
         ``iv``.  Ghost cells are re-derived from the interior, which is
         what makes snapshots topology-free; ``prep`` re-derives the env
         fields from the raw item (prep must be deterministic)."""
-        _, envs = self._prep1(item)
-        return self._slot_write(frames, env_frames, r, it, done, hw, idx,
-                                a_mid, envs, rv, iv, hv)
+        with obs.span("farm.prep", device=self.device):
+            _, envs = self._prep1(item)
+            return self._slot_write(frames, env_frames, r, it, done, hw, idx,
+                                    a_mid, envs, rv, iv, hv)
 
     def _slot_write(self, frames, env_frames, r, it, done, hw, idx,
                     a0, envs, rv, iv, hv):
@@ -1022,46 +1044,51 @@ class FarmEngine:
         | hw | take | steps), with one step count a lane shard.  Under a
         lane mesh the seating runs over the global lane order, as the
         reference's does over its sharded vectors."""
-        loop = self._loop
-        (frames, env_frames, r, it, done, hw,
-         steps) = self._segment_body(frames, env_frames, r, it, done, hw)
-        fin = done | (it >= loop.max_iters)
-        outs = self._unframe_all(frames)
-        r_pre, it_pre, hw_pre = r, it, hw
-        elig = fin & live
-        e32 = elig.to(torch.int32)
-        rank = torch.cumsum(e32, 0) - e32
-        take = elig & (rank < (wr - rd))
-        K = self._ring_depth
-        pos = torch.where(take, (rd + rank) % K, torch.zeros_like(rank))
-        frames, env_frames = self._chain_refill(frames, env_frames, take,
-                                                pos)
-        r = torch.where(take, torch.full_like(r, loop._id), r)
-        it = torch.where(take, torch.zeros_like(it), it)
-        done = done & ~take
-        hw = torch.where(take, torch.zeros_like(hw), hw)
-        rd = rd + take.sum(dtype=torch.int32)
-        meta = torch.cat([
-            fin.to(torch.int32), it_pre.to(torch.int32),
-            hw_pre.to(torch.int32), take.to(torch.int32),
-            *(torch.full((1,), n, dtype=torch.int32, device=self.device)
-              for n in steps)])
-        return (frames, env_frames, r, it, done, hw, rd, meta, r_pre, outs)
+        with obs.span("farm.dispatch", device=self.device):
+            loop = self._loop
+            (frames, env_frames, r, it, done, hw,
+             steps) = self._segment_body(frames, env_frames, r, it, done, hw)
+            fin = done | (it >= loop.max_iters)
+            outs = self._unframe_all(frames)
+            r_pre, it_pre, hw_pre = r, it, hw
+            elig = fin & live
+            e32 = elig.to(torch.int32)
+            rank = torch.cumsum(e32, 0) - e32
+            take = elig & (rank < (wr - rd))
+            K = self._ring_depth
+            pos = torch.where(take, (rd + rank) % K, torch.zeros_like(rank))
+            frames, env_frames = self._chain_refill(frames, env_frames, take,
+                                                    pos)
+            r = torch.where(take, torch.full_like(r, loop._id), r)
+            it = torch.where(take, torch.zeros_like(it), it)
+            done = done & ~take
+            hw = torch.where(take, torch.zeros_like(hw), hw)
+            rd = rd + take.sum(dtype=torch.int32)
+            meta = torch.cat([
+                fin.to(torch.int32), it_pre.to(torch.int32),
+                hw_pre.to(torch.int32), take.to(torch.int32),
+                *(torch.full((1,), n, dtype=torch.int32, device=self.device)
+                  for n in steps)])
+            return (frames, env_frames, r, it, done, hw, rd, meta, r_pre, outs)
 
     def _stage_impl(self, pos: int, item):
         """Write one stream item's PREPPED interior/env fields (``prep``
         runs once, on the lead device) into every ring copy at ``pos`` —
         the read stage running ahead of need."""
-        a0, envs = self._prep1(item)
-        for ring, ring_envs in self._rings.values():
-            stage_ring_write(ring, a0.to(ring.device), pos)
-            for re_, e in zip(ring_envs, envs):
-                stage_ring_write(re_, e.to(re_.device), pos)
+        with obs.span("farm.prep", device=self.device):
+            a0, envs = self._prep1(item)
+            for ring, ring_envs in self._rings.values():
+                stage_ring_write(ring, a0.to(ring.device), pos)
+                for re_, e in zip(ring_envs, envs):
+                    stage_ring_write(re_, e.to(re_.device), pos)
 
     def _meta_read(self, *arrs):
-        """THE device→host transfer of one chained-segment drain: every
-        metadata read of a drained segment funnels through here."""
-        return tuple(a.cpu().numpy() for a in arrs)
+        """The metadata read of one chained-segment drain: every read of
+        a drained segment's packed metadata funnels through here (the
+        emitted payloads and the segment's reduce vector are pulled apart,
+        on first need)."""
+        with obs.span("farm.drain"):
+            return tuple(a.cpu().numpy() for a in arrs)
 
     def _check_item(self, item):
         """Guard EVERY leaf of a stream item — the main array AND any env
@@ -1154,6 +1181,7 @@ class FarmEngine:
         self._resume_state = state
         return self
 
+    @obs.collected("farm.other")
     def run_continuous(self, source, sink, *, recovery=None,
                        resume: bool = False,
                        on_segment: Optional[Callable] = None) -> int:
@@ -1221,7 +1249,8 @@ class FarmEngine:
                     "iters": int(res.iters), "reduced": res.reduced,
                     "a": res.a, "error": res.error})
             try:
-                sink(res)
+                with obs.span("farm.sink"):
+                    sink(res)
             except Exception as e:
                 self.stats["sink_errors"] += 1
                 res = dataclasses.replace(
@@ -1369,7 +1398,7 @@ class FarmEngine:
         def refill(slot, entry):
             nonlocal frames, env_frames, r, itv, done, hw
             carry = entry.pop("carry", None)
-            item = to_device(entry["item"], dev)
+            item = self._upload(entry["item"])
             if carry is None:
                 entry["attempts"] += 1
                 frames, env_frames, r, itv, done, hw = self._refill_impl(
@@ -1381,7 +1410,7 @@ class FarmEngine:
                 a_mid, rs, its, hws = carry
                 frames, env_frames, r, itv, done, hw = self._restore_impl(
                     frames, env_frames, r, itv, done, hw, slot, item,
-                    to_device(_leaf(a_mid), dev), float(rs), its, hws)
+                    self._upload(_leaf(a_mid)), float(rs), its, hws)
                 prev_it[slot] = int(its)
                 self.stats["recovered_occupants"] += 1
             occupants[slot] = entry
@@ -1393,20 +1422,22 @@ class FarmEngine:
             rejects (they emit + dead-letter without consuming the slot;
             drift errors still raise) and items whose result was
             journaled pre-crash."""
-            while True:
-                entry = next_entry(slot)
-                if entry is None:
+            with obs.span("farm.stage"):
+                while True:
+                    entry = next_entry(slot)
+                    if entry is None:
+                        return
+                    if entry["index"] in emitted_pre:
+                        continue
+                    try:
+                        with obs.span("farm.check"):
+                            self._check_item(entry["item"])
+                    except NonFiniteItemError:
+                        self.stats["rejected"] += 1
+                        emit(entry, "rejected")
+                        continue
+                    refill(slot, entry)
                     return
-                if entry["index"] in emitted_pre:
-                    continue
-                try:
-                    self._check_item(entry["item"])
-                except NonFiniteItemError:
-                    self.stats["rejected"] += 1
-                    emit(entry, "rejected")
-                    continue
-                refill(slot, entry)
-                return
 
         def capture(complete=None):
             """Build the :meth:`snapshot` tree from the live run state
@@ -1474,9 +1505,11 @@ class FarmEngine:
                 retry_q.append(entry)
                 self.stats["retries"] += 1
             else:
-                out, red = payload()
-                self.stats["d2h_bytes"] += _nbytes(out) + _nbytes(red) + 4
-                emit(entry, status, a=out, reduced=red, iters=it_s)
+                with obs.span("farm.emit"):
+                    out, red = payload()
+                    self.stats["d2h_bytes"] += \
+                        _nbytes(out) + _nbytes(red) + 4
+                    emit(entry, status, a=out, reduced=red, iters=it_s)
             if (not slot_dead[slot]
                     and slot_fails[slot] >= self.slot_patience
                     and L - sum(slot_dead) > 1):
@@ -1515,13 +1548,14 @@ class FarmEngine:
                     if entry["index"] in emitted_pre:
                         continue
                     try:
-                        self._check_item(entry["item"])
+                        with obs.span("farm.check"):
+                            self._check_item(entry["item"])
                     except NonFiniteItemError:
                         self.stats["rejected"] += 1
                         emit(entry, "rejected")
                         continue
                     break
-                self._stage_impl(wr_host % K, to_device(entry["item"], dev))
+                self._stage_impl(wr_host % K, self._upload(entry["item"]))
                 staged.append(entry)
                 wr_host += 1
                 self.stats["h2d_bytes"] += _item_nbytes(entry["item"])
@@ -1532,7 +1566,9 @@ class FarmEngine:
                 # staying < K deep never overwrites a ring position an
                 # in-flight segment might still read
                 while wr_host - rd_host < K:
-                    if not stage_next():
+                    with obs.span("farm.stage"):
+                        more = stage_next()
+                    if not more:
                         return
 
             def unstage_all():
@@ -1577,6 +1613,7 @@ class FarmEngine:
                 meta_d, r_d, outs_d = inflight.popleft()
                 (meta_h,) = self._meta_read(meta_d)
                 self.stats["host_reads"] += 1
+                obs.poll()
                 fin_h = meta_h[0:L] != 0
                 it_h = meta_h[L:2 * L].astype(np.int64)
                 hw_h = meta_h[2 * L:3 * L]
@@ -1586,11 +1623,14 @@ class FarmEngine:
                 r_h = []                     # ONE reduce pull a drained
                                              # segment, on first need
                 def payload(slot):
-                    if not r_h:
-                        r_h.append(r_d.cpu())
+                    with obs.span("farm.payload", device=dev):
+                        if not r_h:
+                            with obs.span("farm.drain"):
+                                r_h.append(r_d.cpu())
+                            self.stats["host_reads"] += 1
                         self.stats["host_reads"] += 1
-                    self.stats["host_reads"] += 1
-                    return outs_d[slot // Ll][slot % Ll].cpu(), r_h[0][slot]
+                        return (outs_d[slot // Ll][slot % Ll].cpu(),
+                                r_h[0][slot])
                 for slot in range(L):
                     entry = occupants[slot]
                     if entry is None or not fin_h[slot]:
@@ -1659,26 +1699,31 @@ class FarmEngine:
         def run_classic():
             nonlocal frames, env_frames, r, itv, done, hw, prev_it
             while any(o is not None for o in occupants):
-                (frames, env_frames, r, itv, done, hw,
-                 steps) = self._segment_body(frames, env_frames, r, itv,
-                                           done, hw)
+                with obs.span("farm.dispatch", device=dev):
+                    (frames, env_frames, r, itv, done, hw,
+                     steps) = self._segment_body(frames, env_frames, r, itv,
+                                               done, hw)
                 self.stats["segments"] += 1
                 if on_segment is not None:
                     # the preemption seam: fires BEFORE this segment's
                     # results are journaled
                     on_segment(self.stats["segments"])
-                done_h = done.cpu().numpy()
-                it_h = itv.cpu().numpy().astype(np.int64)
-                r_h = r.cpu()
-                hw_h = hw.cpu().numpy()
+                with obs.span("farm.drain"):
+                    done_h = done.cpu().numpy()
+                    it_h = itv.cpu().numpy().astype(np.int64)
+                    r_h = r.cpu()
+                    hw_h = hw.cpu().numpy()
                 self.stats["host_reads"] += 4
+                obs.poll()
                 account(steps, it_h)
                 prev_it = it_h.copy()
                 finished = done_h | (it_h >= loop.max_iters)
 
                 def payload(slot):
                     self.stats["host_reads"] += 1
-                    return self._extract_impl(frames, slot).cpu(), r_h[slot]
+                    with obs.span("farm.payload", device=dev):
+                        return (self._extract_impl(frames, slot).cpu(),
+                                r_h[slot])
                 for slot in range(L):
                     entry = occupants[slot]
                     if entry is None or not finished[slot]:

@@ -18,6 +18,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import obs
+
+# the MoE layer's spans (repro_torch.obs): timed on the device in an eager
+# forward, inside the model's other work, so they take no part in idle
+MOE_SPANS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine",
+             "moe.shared")
+
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     """``(1 + scale) · x / rms(x)``, in float32, cast to ``x``'s dtype."""
@@ -242,11 +249,15 @@ def expert_ffn(xt, a: Assignments, keep, w_gate, w_up, w_down, *,
                e_first: int, capacity: int, act: str):
     """Dispatch the kept assignments, run the experts ``e_first ..
     e_first + E_loc`` and combine their weighted rows in token order."""
-    xe, le, pc = dispatch(xt, a, keep, e_first=e_first, e_loc=w_up.shape[0],
-                          capacity=capacity)
-    ye = experts(xe, w_gate, w_up, w_down, act)
+    dev = xt.device
+    with obs.span("moe.dispatch", device=dev, idle=False):
+        xe, le, pc = dispatch(xt, a, keep, e_first=e_first,
+                              e_loc=w_up.shape[0], capacity=capacity)
+    with obs.span("moe.experts", device=dev, idle=False):
+        ye = experts(xe, w_gate, w_up, w_down, act)
     del xe
-    return combine(ye, a, keep, le, pc, xt.shape[0])
+    with obs.span("moe.combine", device=dev, idle=False):
+        return combine(ye, a, keep, le, pc, xt.shape[0])
 
 
 def moe_aux(logits, probs, top_i, pos_s, capacity: int) -> dict:
@@ -284,11 +295,13 @@ def moe(params: MoE, x: torch.Tensor, *, top_k: int, act: str = "silu",
     E = params.w_up.shape[0]
     xt = x.reshape(-1, D)
     C = capacity(xt.shape[0], top_k, E, capacity_factor, dropless)
-    logits, probs, top_p, top_i = route(params.router, xt, top_k)
-    a = sort_assignments(top_i, top_p)
-    keep = a.pos < C
+    with obs.span("moe.route", device=x.device, idle=False):
+        logits, probs, top_p, top_i = route(params.router, xt, top_k)
+        a = sort_assignments(top_i, top_p)
+        keep = a.pos < C
     y = expert_ffn(xt, a, keep, params.w_gate, params.w_up, params.w_down,
                    e_first=0, capacity=C, act=act)
     if hasattr(params, "shared"):
-        y = y + mlp(params.shared, xt, act)
+        with obs.span("moe.shared", device=x.device, idle=False):
+            y = y + mlp(params.shared, xt, act)
     return y.reshape(B, S, D), moe_aux(logits, probs, top_i, a.pos, C)

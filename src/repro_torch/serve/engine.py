@@ -49,11 +49,20 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import obs
 from ..configs.base import ArchConfig
 from ..core.pattern import LoopOfStencilReduce, segmented_while
 from ..device import to_device
 from ..models import transformer as T
-from .graphs import StepGraph
+from ..models.layers import MOE_SPANS
+from .graphs import StepGraph, graph_counts
+
+# the continuous engine's spans (repro_torch.obs), the MoE layer's among
+# them; the device ones record CUDA events
+SERVE_SPANS = ("serve.admit", "serve.segment", "serve.drain", "serve.emit",
+               "loop.step", "loop.exit_read") + MOE_SPANS
+SERVE_DEVICE_SPANS = ("serve.admit", "serve.segment", "loop.step") \
+    + MOE_SPANS
 
 
 @dataclasses.dataclass
@@ -360,17 +369,18 @@ class GenerateJit:
         st.t.fill_(1)
         # the decode loop: CHECK_EVERY replays, then one host read
         g = st.graph
-        calls, replays, captures = g.calls, g.replays, g.captures
+        calls, (replays, captures) = g.calls, graph_counts(g)
         while True:
             for _ in range(CHECK_EVERY):
                 g()
             self.stats["checks"] += 1
             if not bool(st.running()):
                 break
+        replays_now, captures_now = graph_counts(g)
         self.stats["calls"] += 1
         self.stats["steps"] += g.calls - calls
-        self.stats["replays"] += g.replays - replays
-        self.stats["captures"] += g.captures - captures
+        self.stats["replays"] += replays_now - replays
+        self.stats["captures"] += captures_now - captures
         out = st.out.clone()
         return out, _lengths(out, st.bud, gcfg), st.t - 1
 
@@ -507,7 +517,11 @@ class ContinuousEngine:
                       "prefill_traces": 0, "slot_steps": 0,
                       "idle_slot_steps": 0, "evicted": 0, "shed": 0,
                       "snapshots": 0, "replayed_items": 0,
-                      "recovered_occupants": 0, "recovery_seconds": 0.0}
+                      "recovered_occupants": 0, "recovery_seconds": 0.0,
+                      "graph_replays": 0, "graph_captures": 0,
+                      **obs.stats_keys(SERVE_SPANS,
+                                       device=SERVE_DEVICE_SPANS,
+                                       other="serve.other")}
         self._resume_state = None       # staged by restore()
         self._rt_capture = None         # live snapshot closure
 
@@ -698,6 +712,7 @@ class ContinuousEngine:
 
     # -- the dispatcher ------------------------------------------------------
     @torch.no_grad()
+    @obs.collected("serve.other")
     def run(self, requests, emit, *, clock=None, recovery=None,
             resume: bool = False,
             on_segment: Optional[Callable] = None,
@@ -752,11 +767,12 @@ class ContinuousEngine:
             """WAL-ordered emission: journal (fsync'd) first, then the
             ``emit`` callback."""
             nonlocal n_emit
-            if journal is not None and journal_rec:
-                journal.append({"rid": rid,
-                                "tokens": [int(x) for x in tokens],
-                                "status": status})
-            emit(rid, tokens, status)
+            with obs.span("serve.emit"):
+                if journal is not None and journal_rec:
+                    journal.append({"rid": rid,
+                                    "tokens": [int(x) for x in tokens],
+                                    "status": status})
+                emit(rid, tokens, status)
             n_emit += 1
 
         if recovery is not None and resume:
@@ -859,10 +875,11 @@ class ContinuousEngine:
             prompt = np.zeros((self._S0,), np.int32)    # right-padded
             prompt[:len(ptoks)] = ptoks
             i32 = dict(dtype=torch.int32, device=dev)
-            carry = self._admit_slot(
-                carry, slot, torch.as_tensor(prompt, device=dev),
-                torch.tensor(len(ptoks), **i32), torch.tensor(bud, **i32),
-                self.stats["prefills"])
+            args = (torch.as_tensor(prompt, device=dev),
+                    torch.tensor(len(ptoks), **i32), torch.tensor(bud, **i32))
+            with obs.span("serve.admit", device=dev):
+                carry = self._admit_slot(carry, slot, *args,
+                                         self.stats["prefills"])
             occupants[slot] = req
             prev_t[slot] = 1    # the prefilled first token is not a step
             self.stats["prefills"] += 1
@@ -995,14 +1012,17 @@ class ContinuousEngine:
             nonlocal carry
             while any(o is not None for o in occupants):
                 self._serve_entry("segment", "segment_traces")
-                carry, steps = self._segment_core(carry)
+                with obs.span("serve.segment", device=dev):
+                    carry, steps = self._segment_core(carry)
                 self.stats["segments"] += 1
                 if on_segment is not None:
                     # before emission: the harshest preemption window
                     on_segment(self.stats["segments"])
                 _, out, done, t = carry[:4]
-                done_h, out_h = done.cpu().numpy(), out.cpu().numpy()
-                t_h = t.cpu().numpy().astype(np.int64)
+                with obs.span("serve.drain"):
+                    done_h, out_h = done.cpu().numpy(), out.cpu().numpy()
+                    t_h = t.cpu().numpy().astype(np.int64)
+                obs.poll()
                 account(steps, t_h)
                 now = clock()
                 for slot in range(self.slots):
@@ -1029,7 +1049,8 @@ class ContinuousEngine:
                 nonlocal carry, ndisp
                 self._serve_entry("chain_segment", "segment_traces",
                                   "chain_traces")
-                carry, steps = self._segment_core(carry)
+                with obs.span("serve.segment", device=dev):
+                    carry, steps = self._segment_core(carry)
                 ndisp += 1
                 self.stats["segments"] += 1
                 if on_segment is not None:
@@ -1046,8 +1067,10 @@ class ContinuousEngine:
 
             def drain_one():
                 d, done_d, t_d, out_d, steps = inflight.popleft()
-                done_h, out_h = done_d.cpu().numpy(), out_d.cpu().numpy()
-                t_h = t_d.cpu().numpy().astype(np.int64)
+                with obs.span("serve.drain"):
+                    done_h, out_h = done_d.cpu().numpy(), out_d.cpu().numpy()
+                    t_h = t_d.cpu().numpy().astype(np.int64)
+                obs.poll()
                 valid = seated_at < d
                 account(steps, t_h, valid)
                 now = clock()
@@ -1089,6 +1112,8 @@ class ContinuousEngine:
             # callback leaves the engine usable
             (self._caches, self._out, self._done, self._t, self._budget,
              self._keys, self._plen) = carry
+            (self.stats["graph_replays"],
+             self.stats["graph_captures"]) = graph_counts(self._step)
             if journal is not None:
                 journal.close()
         return n_emit

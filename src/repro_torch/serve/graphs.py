@@ -57,6 +57,12 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     return torch.cuda.Stream(device)
 
 
+def graph_counts(step) -> tuple:
+    """``(replays, captures)`` of a body step: a :class:`StepGraph`'s
+    counters, ``(0, 0)`` for a step issued as a plain function."""
+    return getattr(step, "replays", 0), getattr(step, "captures", 0)
+
+
 class StepGraph:
     """A step over static buffers: eager on the CPU, a captured CUDA graph
     on the card (see the module docstring).  ``calls`` counts the steps
