@@ -120,6 +120,20 @@ phi-3-vision-4.2b) — on one CUDA card at full size:
      128, S 4096), each held against plain and timed beside plain,
      flex_attention, the bound and (bf16) the split design's bound
      (1.83x the function's flops at hd 96, whose P·V is padded to 128);
+ 23. the cached decode attention kernel (``csrc/decode_attention.cu``)
+     at the benchmark's deepseek-moe-16b serving shapes (16/16 heads at
+     hd 128: chat 32 slots over 2304 rows, longprompt 8 over 3872), with
+     positions drawn from ``portbench/traffic``'s prompt and budget laws:
+     registers and spills (a spill fails the phase), the kernel within
+     one bf16 ulp of its plain version and a planted fault (one key past
+     each position) required to fail that limit; per launch the kernel's
+     time beside its bytes bound over the filled prefix, the plain
+     version's, the einsum route's it replaces and SDPA's (``library_ms``,
+     a yardstick the port never calls); then, after each group of LM
+     phases (12-13 with 20, 17, 18, 19), the first call at every layout
+     they give the kernel (B, T, heads, hd, window, softcap), its inputs
+     and output kept, held to the same limit against plain, with a
+     planted fault (each position one short) required to fail it;
  12. gemma2-9b at full width and depth in bf16, B=1, S=8192: the scoring
      forward on the kernel route (42 launches a forward) and on the einsum
      route, lm_loss, max|dlogits| and top-1 agreement gated; then in f32
@@ -295,8 +309,9 @@ inside phases 12-13, phases 21 and 22 after 19).  Phases 2-4, 9,
 zeroed just before phase 2 and read just after phase 16 (the single-step
 launches also by shape, the multistep launches by T).  Phases 12-13, 20
 and 17-19 are the LM main path: the counts (the attention's by route) are
-zeroed just before phase 12 and read just after phase 19 (phase 20's
-cached attention takes no kernel, as in the reference); the bf16 layers
+zeroed just before phase 12 and read just after phase 19 (cached bf16
+decode over a full cache takes the decode kernel, which must have
+launched; the reference sends it through no kernel); the bf16 layers
 at hd 64/96/128/256 must take the wgmma route and the f32 ones the
 CUDA-core route, and each route is its own entry of the
 ``kernels`` line.  Phase 21 is the training path: the counts are zeroed
@@ -442,9 +457,10 @@ def limit_use(x, y, rtol, atol) -> float:
 
 
 def zero_counts():
+    from repro_torch.kernels import decode_attention as DK
     from repro_torch.kernels import stencil2d as S
     from repro_torch.kernels import swa_attention as A
-    for counts in (S.launch_counts, A.launch_counts):
+    for counts in (S.launch_counts, A.launch_counts, DK.launch_counts):
         for key in counts:
             counts[key] = 0
 
@@ -486,6 +502,12 @@ def ptxas_entries(blog: str):
 def short_name(mangled: str) -> str:
     """``kernel<storage, functor>`` from a mangled instantiation name."""
     storage = "bf16" if "nv_bfloat16" in mangled else "f32"
+    if "decode_split" in mangled:
+        g, lanes, rows = (a.split("E", 1)[0] for a in mangled.split(
+            "decode_split", 1)[1].split("Li")[1:4])
+        return f"decode_split<G={g}, L={lanes}, R={rows}>"
+    if "decode_combine" in mangled:
+        return "decode_combine"
     if "swa_wgmma_kernel" in mangled:
         hd = mangled.split("swa_wgmma_kernel", 1)[1].split("Li", 1)[1] \
             .split("E", 1)[0]
@@ -3115,6 +3137,206 @@ def route_compare(cfg, model, batch):
     return dict(s_kernel=s_k, s_einsum=s_e, launches_kernel=n_k,
                 launches_einsum=n_e, loss_kernel=loss_k, loss_einsum=loss_e,
                 finite=finite_k and finite_e, fault=fault, **gap)
+
+
+# phase 23: the cached decode attention kernel at the serving cells' shapes
+# (portbench's deepseek-moe-16b traffic: slots, pool width + cap, the prompt
+# and budget laws), each beside its bytes bound over the filled prefix
+DECODE_CELLS = ("deepseek-moe-16b-chat", "deepseek-moe-16b-longprompt")
+DECODE_HEADS = (16, 16, 128)          # deepseek-moe-16b: H, KH, hd
+# one bf16 ulp: the kernel and its plain version both round one float32
+# value (summed in another order) to bf16 once (tests/test_torch_cuda.py)
+TOL_DECODE_RTOL, TOL_DECODE_ATOL = 1e-2, 1e-4
+
+
+def decode_positions(traffic, B, seed):
+    """B query positions as the cell's slots hold them: a prompt length and
+    a budget from the traffic's log-normal laws (clipped as the file says),
+    and a step uniform over the budget; the position is prompt + step - 1
+    (the row the step writes and reads up to)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def law(spec):
+        v = spec["median"] * np.exp(spec["sigma"] * rng.standard_normal(B))
+        return np.clip(np.round(v), *spec["clip"]).astype(np.int64)
+    plen, budget = law(traffic["prompt"]), law(traffic["budget"])
+    step = 1 + (rng.random(B) * budget).astype(np.int64)
+    return plen + step - 1
+
+
+def einsum_decode(q, k, v, pos):
+    """The einsum route's cached decode attention (``models/attention.py``
+    for S = 1 over a full cache), for its time beside the kernel's."""
+    import torch
+    B, _, H, hd = q.shape
+    T, KH = k.shape[1], k.shape[2]
+    qg = q.reshape(B, 1, KH, H // KH, hd)
+    s = torch.einsum("bqhgk,bshk->bhgqs", qg, k).float() \
+        * float(1.0 / math.sqrt(hd))
+    t = torch.arange(T, device=q.device)
+    zero = torch.zeros((), device=q.device)
+    bias = torch.where(t[None, :] <= pos[:, None], zero,
+                       torch.full_like(zero, -2.0 ** 30))
+    p = torch.softmax(s + bias[:, None, None, None], dim=-1).to(q.dtype)
+    return torch.einsum("bhgqs,bshk->bqhgk", p, v).reshape(B, 1, H, hd)
+
+
+def phase23(gen, rate):
+    """The decode kernel against its plain version at the chat and
+    longprompt cells' shapes (and a planted fault, one key past each
+    position, that the limit must catch), its registers and spills; per
+    launch: the kernel, its bytes bound over the filled prefix (visible K
+    and V rows, q and the output once, at ``rate``), the plain version, the
+    einsum route it replaces and ``scaled_dot_product_attention`` with a
+    boolean mask (``library_ms``, a yardstick the port never calls).
+    Returns {cell: row}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as DK
+
+    spills = []
+    for name, r, spill in ptxas_entries(
+            (_build.build_dir() / "build.log").read_text()):
+        if "decode_split" in name or "decode_combine" in name:
+            log(f"[phase23] {short_name(name)}: {r} registers, "
+                f"{spill or 'no spills'}")
+            if spill:
+                spills.append(short_name(name))
+    H, KH, hd = DECODE_HEADS
+    rows = {}
+    for i, cell in enumerate(DECODE_CELLS):
+        traffic = json.loads((ROOT / "portbench" / "traffic"
+                              / f"{cell}.json").read_text())
+        B, T = traffic["slots"], traffic["pool_width"] + traffic["cap"]
+        pos = torch.as_tensor(decode_positions(traffic, B, 23 + i),
+                              device="cuda")
+        q = torch.randn((B, 1, H, hd), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((B, T, KH, hd), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        lim = (TOL_DECODE_RTOL, TOL_DECODE_ATOL)
+        got = DK.decode_attention(q, k, v, pos)
+        want = DK.decode_attention_plain(q, k, v, pos)
+        ok, use, err = (within(got, want, *lim), limit_use(got, want, *lim),
+                        max_err(got, want))
+        del want
+        use_bad = limit_use(got, DK.decode_attention_plain(q, k, v, pos + 1),
+                            *lim)
+        if not ok:
+            raise AssertionError(f"phase23 {cell}: kernel/plain outside one "
+                                 f"bf16 ulp (use {use!r})")
+        if not use_bad > 1.0:
+            raise AssertionError(f"phase23 {cell}: the limit passes a "
+                                 f"planted fault (use {use_bad!r})")
+        rows_read = int((pos + 1).clamp(max=T).sum())
+        n_split = DK.splits(T, DK.split_keys(B, KH, T))
+        nbytes = (rows_read * KH * hd * 2 + 2 * B * H * hd) * 2
+        bound_ms = nbytes / rate * 1e3
+        ms = cuda_ms(lambda: DK.decode_attention(q, k, v, pos), iters=50,
+                     warmup=5)
+        plain_ms = cuda_ms(lambda: DK.decode_attention_plain(q, k, v, pos),
+                           iters=3, warmup=1)
+        einsum_ms = cuda_ms(lambda: einsum_decode(q, k, v, pos), iters=10,
+                            warmup=2)
+        e_einsum = max_err(einsum_decode(q, k, v, pos), got)
+        mask = (torch.arange(T, device="cuda")[None, :]
+                <= pos[:, None])[:, None, None, :]
+        try:
+            def lib():
+                return F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=mask, enable_gqa=H != KH)
+            lib_ms = cuda_ms(lib, iters=10, warmup=2)
+            lib_err = max_err(lib().transpose(1, 2), got)
+        except Exception as e:                        # noqa: BLE001
+            log(f"[phase23] {cell}: SDPA failed ({type(e).__name__}: "
+                f"{e})"[:300])
+            lib_ms = lib_err = None
+        row = dict(B=B, T=T, H=H, KH=KH, hd=hd,
+                   rows_visible=rows_read, pos_mean=float(pos.float().mean()),
+                   splits=n_split, ms=ms, bound_ms=bound_ms,
+                   bound_by="bytes", bytes=nbytes, gb_per_s=nbytes / ms / 1e6,
+                   over_bound=ms / bound_ms, plain_ms=plain_ms,
+                   einsum_ms=einsum_ms, library_ms=lib_ms,
+                   library="sdpa (bool mask)", max_abs_err=err,
+                   limit_use=use, fault_limit_use=use_bad,
+                   einsum_max_abs_diff=e_einsum, library_max_abs_diff=lib_err)
+        rows[cell] = row
+        log(f"[phase23] {cell}: B {B} T {T} {H}/{KH} heads hd {hd}, "
+            f"{rows_read} visible rows ({n_split} splits): kernel "
+            f"{ms:.4f} ms, bytes bound {bound_ms:.4f} ms ({ms / bound_ms:.2f}"
+            f"x, {nbytes / ms / 1e6:.0f} GB/s), plain {plain_ms:.4f} ms, "
+            f"einsum route {einsum_ms:.4f} ms, library {lib_ms} ms; "
+            f"kernel/plain max_abs_err {err!r} ({use:.4f} of the one-ulp "
+            f"limit; the planted fault {use_bad:.4f}); einsum route and "
+            f"library differ from the kernel by {e_einsum!r} / {lib_err!r}")
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    if spills:
+        raise AssertionError(f"phase23: the decode kernel spills: {spills}")
+    return rows
+
+
+class DecodeLayouts:
+    """Phase 23's second part: every layout (B, T, H, KH, hd, window,
+    softcap) the LM phases give the decode kernel.  The first call at each
+    layout outside a graph capture keeps clones of its inputs and output
+    (``models/attention.py`` calls the kernel through the module attribute
+    this wraps); :meth:`check` then holds each kept output against the
+    plain version with phase 23's one-ulp limit, and requires a planted
+    fault (each position one short: the newest key dropped) to fail it."""
+
+    def __init__(self, DK):
+        self.DK, self.launch = DK, DK.decode_attention
+        self.phase = None                # the LM phases now running
+        self.kept, self.rows = {}, {}
+        DK.decode_attention = self._call
+
+    def _call(self, q, k, v, pos, **kw):
+        import torch
+        out = self.launch(q, k, v, pos, **kw)
+        key = (q.shape[0], k.shape[1], q.shape[2], k.shape[2], q.shape[3],
+               int(kw.get("window", 0)), float(kw.get("softcap", 0.0)))
+        if key not in self.kept and key not in self.rows \
+                and not torch.cuda.is_current_stream_capturing():
+            self.kept[key] = (self.phase, [
+                t.clone() if isinstance(t, torch.Tensor) else t
+                for t in (q, k, v, pos)], dict(kw), out.clone())
+        return out
+
+    def check(self):
+        """Hold the kept calls against the plain version and free them;
+        raises on a call outside the limit or a fault inside it."""
+        import torch
+        lim = (TOL_DECODE_RTOL, TOL_DECODE_ATOL)
+        misses = []
+        for key, (phase, (q, k, v, pos), kw, out) in self.kept.items():
+            want = self.DK.decode_attention_plain(q, k, v, pos, **kw)
+            use, err = limit_use(out, want, *lim), max_err(out, want)
+            use_bad = limit_use(out, self.DK.decode_attention_plain(
+                q, k, v, pos - 1, **kw), *lim)
+            B, T, H, KH, hd, window, cap = key
+            self.rows[key] = dict(phase=phase, B=B, T=T, H=H, KH=KH, hd=hd,
+                                  window=window, softcap=cap,
+                                  max_abs_err=err, limit_use=use,
+                                  fault_limit_use=use_bad)
+            log(f"[phase23] phase {phase}'s layout B {B} T {T} {H}/{KH} "
+                f"heads hd {hd} window {window} softcap {cap}: kernel/plain "
+                f"max_abs_err {err!r} ({use:.4f} of the one-ulp limit; the "
+                f"planted fault {use_bad:.4f})")
+            if not use <= 1.0 or not use_bad > 1.0:
+                misses.append(key)
+        self.kept.clear()
+        torch.cuda.empty_cache()
+        if misses:
+            raise AssertionError(
+                f"phase23: the decode kernel misses its plain version, or "
+                f"the limit passes a planted fault, at layouts {misses}")
+
+    def close(self):
+        self.DK.decode_attention = self.launch
 
 
 def phase12(gen, model, cfg, label):
@@ -6455,6 +6677,7 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 gates: true f32
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import decode_attention as DK
     from repro_torch.kernels import stencil2d as S
     from repro_torch.kernels import swa_attention as A
 
@@ -6528,18 +6751,39 @@ def main(argv=None) -> int:
     rows5 = phase5_multistep(gen, SIZE, rate)
     rows5shard = phase5_shard(gen, rate)
     rows11, err11, by_hd11, fam11, slice11 = phase11(gen, rate)
+    # its own generator: the LM phases draw from gen as before
+    rows23 = phase23(torch.Generator(device="cuda").manual_seed(
+        args.seed + 23), rate)
     zero_counts()                            # main path: 12-13, 20, 17-19
+    layouts = DecodeLayouts(DK)
+    layouts.phase = "12-13, 20"
     r12, r13, r12f, r13f, r20 = lm_phases(gen, args.seed)
+    layouts.check()
     by_phase_lm = {"12-13, 20": dict(A.launch_counts)}
+    decode_by_phase = {"12-13, 20": DK.launch_counts["decode_attention"]}
     for phase, fn in ((17, phase17), (18, phase18), (19, phase19)):
         before = dict(A.launch_counts)
+        decode_before = DK.launch_counts["decode_attention"]
+        layouts.phase = str(phase)
         t0 = time.perf_counter()
         by_phase_lm[phase] = fn(gen, rate)
         log(f"[main] phase {phase} took {time.perf_counter() - t0:.1f} s")
+        layouts.check()
         by_phase_lm[f"{phase} launches"] = {
             k: A.launch_counts[k] - before[k] for k in before}
+        decode_by_phase[str(phase)] = \
+            DK.launch_counts["decode_attention"] - decode_before
+    layouts.close()
+    log(f"[main] decode_attention held against plain at "
+        f"{len(layouts.rows)} layouts of the LM path (phase 23)")
     r17, r18, r19 = (by_phase_lm.pop(k) for k in (17, 18, 19))
     lm_launches = dict(A.launch_counts)
+    decode_launches = DK.launch_counts["decode_attention"]
+    log(f"[main] decode_attention launches on the LM path (phases 12-13, 20,"
+        f" 17-19; a captured step counts its capture, not its replays): "
+        f"{decode_launches}, by phase {decode_by_phase}")
+    if decode_launches == 0:
+        raise AssertionError("the LM path never launched decode_attention")
     planted = (r12["fault"]["launches"] + r12f["fault"]["launches"]
                + r17["a"]["fault"]["launches"]
                + r17["b"]["fault"]["launches"]
@@ -6704,7 +6948,27 @@ def main(argv=None) -> int:
             "ms", "device_us", "plain_ms", "bound_ms", "bound_by")},
         "phases": {"launched": [9, 10, 14, 15, 16],
                    "held_against_plain": [5, 8, 9, 10, 14, 15, 16]},
-    }, swa_wgmma, swa_core]}))
+    }, swa_wgmma, swa_core, {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": None,
+        "replaces_note": "no pallas_call: the reference decodes with an "
+                         "einsum that XLA reads in place; torch.einsum "
+                         "copies the whole KV pool",
+        "launches": decode_launches,
+        "launches_by_phase": decode_by_phase,
+        "max_abs_err": max(r["max_abs_err"] for r in (
+            *rows23.values(), *layouts.rows.values())),
+        **{key: rows23[DECODE_CELLS[0]][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library")},
+        "by_cell": rows23,
+        "by_layout": list(layouts.rows.values()),
+        "phases": {"launched": [p for p, n in decode_by_phase.items()
+                                if n],
+                   "held_against_plain": [23]},
+    }]}))
     phase6(gen, SIZE)
     phase7(gen, SIZE, rate)
     log(f"[main] the script took {time.perf_counter() - t_script:.1f} s")

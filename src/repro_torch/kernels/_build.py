@@ -24,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 SOURCES = ("stencil2d.cu", "multistep.cu", "window_bf16.cu",
-           "swa_attention.cu", "swa_wgmma.cu")
+           "swa_attention.cu", "swa_wgmma.cu", "decode_attention.cu")
 HEADERS = ("elementals.cuh", "fold.cuh", "dispatch.cuh", "window.cuh")
 # --fmad=false: no multiply-add contraction, so the functors round exactly
 # like the plain PyTorch bodies; no --use_fast_math (IEEE div and sqrtf).
@@ -147,6 +147,13 @@ def library() -> ctypes.CDLL:
         i, i, i, i, i,               # bh, bkh, S, window, causal
         ctypes.c_float, ctypes.c_float, vp]   # scale, softcap, stream
     lib.swa_attention_wgmma.restype = i
+    lib.decode_attention_bf16.argtypes = [
+        vp, vp, vp, vp, vp,          # q, k, v, pos, out
+        vp, vp,                      # part_o, part_ml
+        i, i, i, i, i, i, i,         # B, H, KH, hd, T, splits, split_keys
+        ll, ll, ll, ll,              # k_sb, k_st, v_sb, v_st
+        i, ctypes.c_float, ctypes.c_float, vp]   # window, scale, softcap, stream
+    lib.decode_attention_bf16.restype = i
     lib.swa_launch_info.argtypes = [vp]
     lib.swa_launch_info.restype = None
     lib.stencil_launch_info.argtypes = [vp]

@@ -8,6 +8,12 @@ self-attention may take the flash route, the hand-written kernel of
 condition; cross-attention never does.  Caches are written in place (the
 reference returns new arrays); each call returns the cache dict it wrote.
 
+Cached single-token decode over a full bf16 cache on the card takes the
+hand-written decode kernel (:mod:`repro_torch.kernels.decode_attention`),
+which reads the pool in place over each sequence's visible keys; ring,
+int8 and cross caches, other dtypes, S > 1 and the CPU keep the einsum.
+:data:`decode_route_calls` counts the cached-decode calls of each route.
+
 Cache positions are device tensors on the serving paths: a (B, 1)
 ``cache_pos`` writes each sequence at its own depth (continuous batching),
 and a ragged prefill's ``kv_len`` masks the pad keys of right-padded
@@ -22,6 +28,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..kernels import decode_attention as decode_kernel
 from .layers import apply_rope, normal, rms_norm, softcap, zeros
 
 NEG_INF = -2.0 ** 30  # large-negative mask value, safe in bf16/f32
@@ -37,6 +44,27 @@ USE_FLASH_SWA: Optional[bool] = None
 def set_flash_swa(enabled: Optional[bool]):
     global USE_FLASH_SWA
     USE_FLASH_SWA = enabled
+
+
+# Cached single-token attention calls (S == 1 over a cache) by route, as
+# Python issues them: a captured CUDA graph's replays add nothing here (the
+# engine counts one step's calls times the steps it issued).
+decode_route_calls = {"kernel": 0, "einsum": 0}
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def _decode_kernel_takes(q, k, kv_cache, *, is_cross: bool,
+                         causal: bool) -> bool:
+    """Whether a cached decode call takes the decode kernel: a full cache
+    (no ring, not int8, not a cross cache) read causally, on the card, with
+    a bf16 query and cache and a head layout the kernel has."""
+    return (not is_cross and causal and "pos" not in kv_cache
+            and "k_scale" not in kv_cache and _on_card(q)
+            and q.dtype == torch.bfloat16 and k.dtype == q.dtype
+            and decode_kernel.takes(q.shape[2], k.shape[2], q.shape[3]))
 
 
 def _flash_enabled(device: torch.device) -> bool:
@@ -164,6 +192,16 @@ def attention(params: Attention, x, *, positions, num_heads, num_kv_heads,
             v = _scatter_cache(kv_cache["v"], v, cache_pos)
             new_cache = kv_cache
             k_pos = torch.arange(k.shape[1], device=x.device)[None, :]
+
+    if kv_cache is not None and S == 1:
+        kernel = _decode_kernel_takes(q, k, kv_cache, is_cross=is_cross,
+                                      causal=causal)
+        decode_route_calls["kernel" if kernel else "einsum"] += 1
+        if kernel:
+            out = decode_kernel.decode_attention(
+                q.contiguous(), k, v, positions, window=window,
+                softcap=attn_softcap, scale=float(1.0 / math.sqrt(head_dim)))
+            return _einsum("bqhk,hkd->bqd", out, params.wo), new_cache
 
     if (_flash_enabled(x.device) and kv_cache is None and not is_cross
             and causal and S % 128 == 0 and not qk_norm and kv_len is None):

@@ -54,6 +54,7 @@ from ..configs.base import ArchConfig
 from ..core.pattern import LoopOfStencilReduce, segmented_while
 from ..device import to_device
 from ..models import transformer as T
+from ..models.attention import decode_route_calls
 from ..models.layers import MOE_SPANS
 from .graphs import StepGraph, graph_counts
 
@@ -467,7 +468,11 @@ class ContinuousEngine:
     cache, the first token is read at the prompt's own last real row, and
     decode continues from each slot's own depth.  ``stats
     ["idle_slot_steps"]`` counts slot-steps burned on retired or
-    done-masked slots.
+    done-masked slots; ``["attn_decode_kernel"]`` and
+    ``["attn_decode_einsum"]`` count the decode steps' cached attention
+    calls by route: one step's calls, recorded on its first run, times the
+    steps of each segment (a replay runs no Python, and repeats its
+    capture).
 
     The segment's body is one decode step over the bound buffers, written
     in place: a captured CUDA graph replayed once a body step on the card
@@ -519,6 +524,7 @@ class ContinuousEngine:
                       "snapshots": 0, "replayed_items": 0,
                       "recovered_occupants": 0, "recovery_seconds": 0.0,
                       "graph_replays": 0, "graph_captures": 0,
+                      "attn_decode_kernel": 0, "attn_decode_einsum": 0,
                       **obs.stats_keys(SERVE_SPANS,
                                        device=SERVE_DEVICE_SPANS,
                                        other="serve.other")}
@@ -545,6 +551,7 @@ class ContinuousEngine:
         # engine's pool alive until the next collection
         eng = weakref.proxy(self)
         self._step = self._step_runner(lambda: eng._decode_step())
+        self._step_routes = None        # one step's attention calls by route
         self._bound = True
 
     def _step_runner(self, step):
@@ -685,7 +692,12 @@ class ContinuousEngine:
         live = ~done
         tok = out.gather(1, (t.long() - 1)[:, None])
         pos = (self._plen + t - 1)[:, None]               # (B, 1)
+        before = dict(decode_route_calls) if self._step_routes is None \
+            else None
         logits, _ = T.decode_step(self.cfg, self.params, caches, tok, pos)
+        if before is not None:
+            self._step_routes = {route: n - before[route]
+                                 for route, n in decode_route_calls.items()}
         nxt = self._sample(logits[:, 0], keys).to(torch.int32)
         if self.gcfg.temperature > 0:
             keys.copy_(torch.where(live[:, None], keys + self._step_key,
@@ -983,6 +995,8 @@ class ContinuousEngine:
                          else grown[valid].sum())
             self.stats["slot_steps"] += steps * self.slots
             self.stats["idle_slot_steps"] += steps * self.slots - useful
+            for route, n in (self._step_routes or {}).items():
+                self.stats[f"attn_decode_{route}"] += steps * n
             prev_t = t_h.copy() if valid is None else \
                 np.where(valid, t_h, prev_t)
 

@@ -70,9 +70,11 @@ def collect():
 def without_wall(stats):
     """The counters of a run, without its wall clock and the port's own
     keys, which the reference's engine does not keep: its spans
-    (``span_*``, ``idle_ms.*``) and its graph counters (``graph_*``)."""
+    (``span_*``, ``idle_ms.*``), its graph counters (``graph_*``) and its
+    decode attention's routes (``attn_decode_*``)."""
     return {k: v for k, v in stats.items() if k != "recovery_seconds"
-            and not k.startswith(("span_", "idle_ms.", "graph_"))}
+            and not k.startswith(("span_", "idle_ms.", "graph_",
+                                  "attn_decode_"))}
 
 
 def run_both(served, reqs, *, cap, eos=1, slots=2, segment=2,

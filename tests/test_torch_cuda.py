@@ -13,7 +13,8 @@ version within atol 2e-5 in float32 and within one bf16 ulp in bf16
 (rtol 1e-2, atol 1e-4: both round nearly the same float32 value once,
 as in ``chip_smoke.py`` phase 11); the flash route against the einsum
 route within atol 1e-4 on float32 logits (online against dense softmax,
-TF32 off).
+TF32 off).  Decode attention: the kernel against its plain version within
+one bf16 ulp (rtol 1e-2, atol 1e-4), as the SWA kernels in bf16.
 """
 import numpy as np
 import pytest
@@ -784,6 +785,154 @@ def test_cuda_greedy_equals_teacher_forced_argmax(cuda_f32):
     for b in range(2):
         L = int(lengths[b])
         assert torch.equal(out[b, :L].long(), exp[b, :L])
+
+
+# ---------------------------------------------------------------------------
+# cached decode attention (csrc/decode_attention.cu): the kernel against its
+# plain version, in place over strided pools, inside a CUDA graph, and
+# counted by the engine on both its step runners
+# ---------------------------------------------------------------------------
+
+# one bf16 ulp: the kernel and the plain version both round one float32
+# value (summed in another order) to bf16 once, as SWA_BF16_LIMIT
+DECODE_LIMIT = dict(rtol=1e-2, atol=1e-4)
+DECODE_CASES = [
+    # (B, T, H, KH, hd, window, softcap)
+    (4, 300, 2, 2, 64, 0, 0.0),
+    (3, 520, 4, 2, 96, 0, 50.0),              # hd 96: 4 of 16 lanes idle
+    (5, 256, 8, 2, 128, 100, 0.0),            # G = 4, one split
+    (2, 700, 16, 2, 256, 0, 50.0),            # G = 8
+    (4, 1000, 4, 1, 256, 300, 0.0),           # window across splits
+    (2, 64, 2, 1, 128, 0, 0.0),               # T below a split
+    (6, 777, 4, 4, 128, 513, 50.0),
+]
+
+
+def decode_inputs(B, T, H, KH, hd, seed, device):
+    """bf16 q (B, 1, H, hd), a pool k, v (B, T, KH, hd) and ragged positions
+    with both ends of the pool."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                               device=device).to(torch.bfloat16)
+               for s in ((B, 1, H, hd), (B, T, KH, hd), (B, T, KH, hd)))
+    pos = rng.integers(0, T, B)
+    pos[:2] = [0, T - 1][:B]
+    return q, k, v, torch.as_tensor(pos, device=device)
+
+
+def decode_launches():
+    from repro_torch.kernels import decode_attention as TD
+    return TD.launch_counts["decode_attention"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_cuda_decode_attention_matches_plain(cuda, case):
+    from repro_torch.kernels import decode_attention as TD
+    B, T, H, KH, hd, window, cap = case
+    q, k, v, pos = decode_inputs(B, T, H, KH, hd, 90, cuda)
+    before = decode_launches()
+    got = TD.decode_attention(q, k, v, pos, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert decode_launches() == before + 1
+    want = TD.decode_attention_plain(q, k, v, pos, window=window,
+                                     softcap=cap)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **DECODE_LIMIT)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_at_deepseeks_shape(cuda):
+    """The chat cell's shape: 32 slots over a 2304-row pool, 16/16 heads at
+    hd 128, positions anywhere in the pool; and a planted fault (one key
+    past each position) that the limit must catch."""
+    from repro_torch.kernels import decode_attention as TD
+    q, k, v, pos = decode_inputs(32, 2304, 16, 16, 128, 91, cuda)
+    got = TD.decode_attention(q, k, v, pos)
+    want = TD.decode_attention_plain(q, k, v, pos)
+    torch.testing.assert_close(got.float(), want.float(), **DECODE_LIMIT)
+    fault = TD.decode_attention_plain(q, k, v, pos + 1)
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(got.float(), fault.float(),
+                                   **DECODE_LIMIT)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_reads_a_strided_pool_in_place(cuda):
+    """Batch and row strides of a wider pool and a one-element position."""
+    from repro_torch.kernels import decode_attention as TD
+    q, k, v, _ = decode_inputs(3, 400, 4, 2, 128, 92, cuda)
+    wide_k = torch.zeros(3, 416, 2, 128, dtype=torch.bfloat16, device=cuda)
+    wide_v = torch.zeros_like(wide_k)
+    wide_k[:, :400], wide_v[:, :400] = k, v
+    sk, sv = wide_k[:, :400], wide_v[:, :400]
+    assert not sk.is_contiguous()
+    pos = torch.tensor(257, device=cuda)
+    got = TD.decode_attention(q, sk, sv, pos, window=100)
+    want = TD.decode_attention_plain(q, k, v, pos, window=100)
+    torch.testing.assert_close(got.float(), want.float(), **DECODE_LIMIT)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_replays_in_a_cuda_graph(cuda):
+    """Captured once on static buffers; each replay reads the positions and
+    the pool as they are then."""
+    from repro_torch.kernels import decode_attention as TD
+    q, k, v, pos = decode_inputs(8, 600, 4, 2, 128, 93, cuda)
+    TD.decode_attention(q, k, v, pos)             # built and warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = decode_launches()
+    with torch.cuda.graph(graph):
+        out = TD.decode_attention(q, k, v, pos, softcap=50.0)
+    assert decode_launches() == before + 1
+    for seed in (94, 95):
+        q2, k2, v2, pos2 = decode_inputs(8, 600, 4, 2, 128, seed, cuda)
+        for buf, new in ((q, q2), (k, k2), (v, v2), (pos, pos2)):
+            buf.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = TD.decode_attention_plain(q2, k2, v2, pos2, softcap=50.0)
+        torch.testing.assert_close(out.float(), want.float(),
+                                   **DECODE_LIMIT)
+    assert decode_launches() == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_engine_counts_the_kernel_on_both_step_runners(cuda):
+    """A bf16 MoE stack at hd 64 served with the captured step and with the
+    eager one: the same tokens, every decode attention call on the kernel,
+    steps × layers of them (a replay repeats its capture's calls)."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import transformer as TT
+    from repro_torch.serve import ContinuousEngine, GenerateConfig, Request
+    cfg = dataclasses.replace(get_reduced("deepseek-moe-16b"),
+                              dtype="bfloat16", head_dim=64)
+    model = TT.init_params(cfg, seed=3, device=cuda)
+    rng = np.random.default_rng(36)
+    reqs = [Request(rid=i, prompt=np.asarray(rng.integers(
+        2, cfg.vocab_size, L), np.int32), max_new_tokens=b)
+        for i, (L, b) in enumerate(zip([4, 12, 6, 9], [9, 7, 3, 9]))]
+    layers = sum(s.kind == "attn" for s in TT.layer_specs(cfg))
+
+    class Eager(ContinuousEngine):
+        def _step_runner(self, step):
+            return step
+
+    runs = []
+    for cls in (ContinuousEngine, Eager):
+        got = {}
+        eng = cls(cfg, model, GenerateConfig(max_new_tokens=9), slots=3,
+                  cache_dtype=torch.bfloat16, segment=4)
+        eng.run(reqs, lambda rid, t, s: got.__setitem__(rid, t.tolist()))
+        runs.append((got, eng.stats["attn_decode_kernel"],
+                     eng.stats["attn_decode_einsum"], eng.stats["segments"]))
+        if cls is ContinuousEngine:
+            assert eng._step.captures == 1 and eng._step.replays > 0
+            steps = eng._step.calls
+    assert runs[0] == runs[1]
+    assert runs[0][1] == steps * layers and runs[0][2] == 0
 
 
 # ---------------------------------------------------------------------------
